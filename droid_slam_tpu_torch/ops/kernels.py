@@ -1,0 +1,120 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each kernel is one ``csrc/*.cu`` file with a plain C entry point. It is
+compiled with ``nvcc`` for ``sm_90a`` into a shared library under
+``droid_slam_tpu_torch/_build/`` (named by a hash of the source and the
+flags, so an edited source rebuilds) and loaded with ``ctypes``. Nothing
+is built when a module is imported: the first wrapper call that needs a
+kernel builds it, and :func:`build` builds several at once, one ``nvcc``
+process per source, all started together.
+
+``LAUNCHES`` counts, per kernel, the launches its wrapper made; a wrapper
+adds one where it launches and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-lineinfo",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+_VOIDP = ctypes.c_void_p
+_INT = ctypes.c_int
+
+# kernel name → (source file, C entry point, argtypes)
+KERNELS = {
+    "corr_level": (
+        "corr_level.cu",
+        "corr_level_launch",
+        [_VOIDP] * 4 + [_INT] * 7 + [_VOIDP],
+    ),
+}
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    exe = shutil.which("nvcc")
+    if exe:
+        return exe
+    from torch.utils.cpp_extension import CUDA_HOME  # honours $CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin")
+
+
+def _library_path(name: str) -> Path:
+    src = CSRC / KERNELS[name][0]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = tuple(KERNELS)) -> Dict[str, str]:
+    """Compile every named kernel whose library is missing, all in parallel.
+
+    Returns {name: compiler output} (ptxas register / shared-memory report)
+    for the kernels compiled by this call. Raises if any compile fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        lib = _library_path(name)
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
+        procs[name] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp,
+            lib,
+        )
+    logs, failed = {}, []
+    for name, (proc, tmp, lib) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(name)
+            continue
+        os.replace(tmp, lib)
+        lib.with_suffix(".log").write_text(logs[name])
+    if failed:
+        raise RuntimeError(
+            "nvcc failed for " + ", ".join(failed) + ":\n"
+            + "\n".join(logs[n] for n in failed)
+        )
+    return logs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of one kernel, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(_library_path(name)))
+        _, entry, argtypes = KERNELS[name]
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
