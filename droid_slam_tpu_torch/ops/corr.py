@@ -1,17 +1,33 @@
-"""Correlation pyramid lookup of the tracking path (PyTorch + CUDA).
+"""Correlation volumes and pyramid lookups (PyTorch + CUDA).
 
-Counterpart of ``corr_lookup_fused`` in the JAX package's ``ops/corr.py``:
-per edge, the correlation of the source features with the target features
-pooled to 4 levels, sampled in a (2r+1)² bilinear window around each
-source pixel's target coordinates. Channel order of the result is
-(level, i, j) with i the x-offset; taps outside the map are 0.
+Counterpart of the JAX package's ``ops/corr.py``: per edge, the correlation
+of the source features with the target features pooled to 4 levels, sampled
+in a (2r+1)² bilinear window around each source pixel's target coordinates.
+Channel order of the result is (level, i, j) with i the x-offset; taps
+outside the map are 0.
 
-One level is :func:`corr_level`. On a CUDA tensor it launches the
-hand-written kernel ``csrc/corr_level.cu``; on a CPU tensor it runs the
-plain version :func:`corr_level_ref`. There is no fallback between the two.
+Three formulations, as in the JAX package:
+
+* volume mode (:func:`corr_volume`, :func:`build_pyramid`,
+  :func:`corr_index`, :class:`CorrPyramid`): the all-pairs volume as a
+  batched matmul, pooled over the target dims. The trajectory filler's
+  operator step uses it. The JAX package computes it in XLA, with no
+  Pallas kernel.
+* fused lookup (:func:`corr_lookup` → :func:`corr_level`): the tracking
+  path. On a CUDA tensor :func:`corr_level` launches ``csrc/corr_level.cu``.
+* split lookup (:class:`AltCorr` → :func:`corr_level_split`): the global
+  backend. Stage A (:func:`corr_slab`, ``csrc/corr_split.cu``) writes the
+  8 volume rows of each pixel's window support across the full width;
+  stage B (:func:`corr_window`) takes the 8 columns of the window from that
+  slab and blends the bilinear taps.
+
+Each kernel wrapper runs its plain version (``*_ref``) on a CPU tensor and
+launches its kernel on a CUDA tensor; there is no fallback between the two.
 """
 
 from __future__ import annotations
+
+from typing import List
 
 import torch
 
@@ -29,6 +45,108 @@ def avg_pool2x2(x: Tensor) -> Tensor:
     return x.mean(dim=(-3, -1))
 
 
+def _window_origin(c: Tensor, radius: int):
+    """(floor, fraction) of a window's first tap along one axis: the floor
+    of the coordinate clipped to ±1e4, so far-out coords give exact zeros
+    and the int cast stays defined. The CUDA kernels use the same float
+    expression."""
+    c0 = c - radius
+    c0f = torch.floor(c0.clamp(-1e4, 1e4))
+    return c0f.long(), c0 - c0f
+
+
+def _blend(patch: Tensor, dx: Tensor, dy: Tensor, radius: int) -> Tensor:
+    """Bilinear taps from the (2r+2)² integer support patch [..., j(y), i(x)]
+    → [..., (2r+1)²] in (i, j) order."""
+    rd = 2 * radius + 1
+    dx = dx[..., None, None]
+    dy = dy[..., None, None]
+    v00 = patch[..., :rd, :rd]
+    v01 = patch[..., 1:, :rd]
+    v10 = patch[..., :rd, 1:]
+    v11 = patch[..., 1:, 1:]
+    out = (
+        v00 * (1 - dx) * (1 - dy)
+        + v10 * dx * (1 - dy)
+        + v01 * (1 - dx) * dy
+        + v11 * dx * dy
+    )
+    return out.transpose(-1, -2).reshape(*out.shape[:-2], rd * rd)
+
+
+def _window_sample(vol: Tensor, coords: Tensor, radius: int) -> Tensor:
+    """Bilinear (2r+1)² window of per-pixel maps: vol [M, H2, W2] f32,
+    coords [M, 2] (x, y) → [M, (2r+1)²], taps outside the map 0 (all of
+    them for an empty map, such as the coarsest level of a small image)."""
+    m, h2, w2 = vol.shape
+    if h2 * w2 == 0:
+        return vol.new_zeros((m, (2 * radius + 1) ** 2))
+    sup = 2 * radius + 2
+    x0, dx = _window_origin(coords[..., 0], radius)
+    y0, dy = _window_origin(coords[..., 1], radius)
+    off = torch.arange(sup, device=vol.device)
+    ys = y0[..., None] + off  # [M, sup]
+    xs = x0[..., None] + off
+    ok = ((ys >= 0) & (ys < h2))[..., :, None] & ((xs >= 0) & (xs < w2))[..., None, :]
+    idx = ys.clamp(0, h2 - 1)[..., :, None] * w2 + xs.clamp(0, w2 - 1)[..., None, :]
+    patch = torch.gather(vol.reshape(m, h2 * w2), 1, idx.reshape(m, sup * sup))
+    patch = torch.where(ok, patch.reshape(m, sup, sup), torch.zeros((), device=vol.device))
+    return _blend(patch, dx, dy, radius)
+
+
+# -----------------------------------------------------------------------------
+# volume mode
+# -----------------------------------------------------------------------------
+
+
+def corr_volume(fmap1: Tensor, fmap2: Tensor) -> Tensor:
+    """All-pairs correlation: [N, H, W, C] × [N, H, W, C] → [N, H, W, H, W]
+    f32, ⟨f1/4, f2/4⟩ per pixel pair (f32 arithmetic for bf16 inputs too)."""
+    n, h, w, c = fmap1.shape
+    f1 = (fmap1 * 0.25).reshape(n, h * w, c).float()
+    f2 = (fmap2 * 0.25).reshape(n, h * w, c).float()
+    return torch.bmm(f1, f2.transpose(1, 2)).reshape(n, h, w, h, w)
+
+
+def build_pyramid(corr: Tensor, num_levels: int = 4) -> List[Tensor]:
+    """Average-pool pyramid over the target spatial dims."""
+    pyramid = [corr]
+    for _ in range(num_levels - 1):
+        pyramid.append(avg_pool2x2(pyramid[-1]))
+    return pyramid
+
+
+def corr_index(volume: Tensor, coords: Tensor, radius: int = 3) -> Tensor:
+    """Window lookup into a volume [N, H1, W1, H2, W2] at coords
+    [N, H1, W1, 2] → [N, H1, W1, (2r+1)²]."""
+    n, h1, w1, h2, w2 = volume.shape
+    out = _window_sample(volume.reshape(n * h1 * w1, h2, w2), coords.reshape(-1, 2), radius)
+    return out.reshape(n, h1, w1, -1)
+
+
+class CorrPyramid:
+    """Precomputed 4-level correlation pyramid (volume mode);
+    ``levels[i]`` is [N, H1, W1, H2/2^i, W2/2^i]."""
+
+    def __init__(self, levels: List[Tensor], radius: int):
+        self.levels = levels
+        self.radius = radius
+
+    @staticmethod
+    def build(fmap1: Tensor, fmap2: Tensor, num_levels: int = 4, radius: int = 3) -> "CorrPyramid":
+        return CorrPyramid(build_pyramid(corr_volume(fmap1, fmap2), num_levels), radius)
+
+    def __call__(self, coords: Tensor) -> Tensor:
+        """coords [N, H1, W1, 2] → [N, H1, W1, L·(2r+1)²]."""
+        out = [corr_index(lvl, coords / (2.0**i), self.radius) for i, lvl in enumerate(self.levels)]
+        return torch.cat(out, dim=-1)
+
+
+# -----------------------------------------------------------------------------
+# fused lookup (tracking)
+# -----------------------------------------------------------------------------
+
+
 def corr_level_ref(f1: Tensor, f2: Tensor, coords: Tensor, radius: int = 3) -> Tensor:
     """Plain version of one level: per-edge correlation volume (a batched
     f32 matmul) followed by a gather of the (2r+2)² integer support and the
@@ -40,36 +158,52 @@ def corr_level_ref(f1: Tensor, f2: Tensor, coords: Tensor, radius: int = 3) -> T
     """
     n, p, c = f1.shape
     h2, w2 = f2.shape[1:3]
-    rd = 2 * radius + 1
-    sup = rd + 1
     vol = torch.bmm(f1.float(), f2.float().reshape(n, h2 * w2, c).transpose(1, 2))
+    out = _window_sample(vol.reshape(n * p, h2, w2), coords.reshape(n * p, 2), radius)
+    return out.reshape(n, p, -1)
 
-    x0 = coords[..., 0] - radius
-    y0 = coords[..., 1] - radius
-    x0f = torch.floor(x0.clamp(-1e4, 1e4))
-    y0f = torch.floor(y0.clamp(-1e4, 1e4))
-    dx = (x0 - x0f)[..., None, None]
-    dy = (y0 - y0f)[..., None, None]
 
-    off = torch.arange(sup, device=f1.device)
-    ys = y0f.long()[..., None] + off  # [N, P, sup]
-    xs = x0f.long()[..., None] + off
-    ok = ((ys >= 0) & (ys < h2))[..., :, None] & ((xs >= 0) & (xs < w2))[..., None, :]
-    idx = ys.clamp(0, h2 - 1)[..., :, None] * w2 + xs.clamp(0, w2 - 1)[..., None, :]
-    patch = torch.gather(vol, 2, idx.reshape(n, p, sup * sup)).reshape(n, p, sup, sup)
-    patch = torch.where(ok, patch, torch.zeros_like(patch))  # [N, P, j(y), i(x)]
+def _check_cuda(name: str, *tensors: Tensor) -> None:
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: all inputs must be on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
 
-    v00 = patch[..., :rd, :rd]
-    v01 = patch[..., 1:, :rd]
-    v10 = patch[..., :rd, 1:]
-    v11 = patch[..., 1:, 1:]
-    out = (
-        v00 * (1 - dx) * (1 - dy)
-        + v10 * dx * (1 - dy)
-        + v01 * (1 - dx) * dy
-        + v11 * dx * dy
-    )
-    return out.transpose(-1, -2).reshape(n, p, rd * rd)
+
+def _check_lookup(name: str, f1: Tensor, f2: Tensor, coords: Tensor, radius: int) -> None:
+    """The argument checks of the lookup kernels (contract of
+    :func:`corr_level_ref`)."""
+    _check_cuda(name, f1, f2, coords)
+    if f1.dtype not in (torch.bfloat16, torch.float32) or f2.dtype != f1.dtype:
+        raise TypeError(f"{name}: f1/f2 must both be bf16 or f32, got {f1.dtype}/{f2.dtype}")
+    if coords.dtype != torch.float32:
+        raise TypeError(f"{name}: coords must be f32, got {coords.dtype}")
+    if f1.dim() != 3 or f2.dim() != 4 or coords.dim() != 3:
+        raise ValueError(f"{name}: expects f1 [N,P,C], f2 [N,H2,W2,C], coords [N,P,2]")
+    n, p, c = f1.shape
+    if f2.shape[0] != n or f2.shape[3] != c or tuple(coords.shape) != (n, p, 2):
+        raise ValueError(
+            f"{name}: shape mismatch f1 {tuple(f1.shape)}, f2 {tuple(f2.shape)}, "
+            f"coords {tuple(coords.shape)}"
+        )
+    if c not in (32, 64, 128, 256) or radius != 3:
+        raise ValueError(f"{name}: kernel takes C in (32, 64, 128, 256) and radius 3, got {c}, {radius}")
+    if n > 65535:
+        raise ValueError(f"{name}: at most 65535 edges per launch, got {n}")
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Call kernel ``name``'s C entry point on the current stream of
+    ``device``; raise on a non-zero CUDA error, else count the launch."""
+    fn = getattr(kernels.library(name), kernels.KERNELS[name][1])
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    kernels.LAUNCHES[name] += 1
 
 
 def corr_level(f1: Tensor, f2: Tensor, coords: Tensor, radius: int = 3) -> Tensor:
@@ -82,45 +216,166 @@ def corr_level(f1: Tensor, f2: Tensor, coords: Tensor, radius: int = 3) -> Tenso
     """
     if f1.device.type == "cpu":
         return corr_level_ref(f1, f2, coords, radius)
-    if f1.device.type != "cuda":
-        raise ValueError(f"corr_level: unsupported device {f1.device}")
-    if f2.device != f1.device or coords.device != f1.device:
-        raise ValueError("corr_level: f1, f2 and coords must be on one device")
-    if f1.dtype not in (torch.bfloat16, torch.float32) or f2.dtype != f1.dtype:
-        raise TypeError(f"corr_level: f1/f2 must both be bf16 or f32, got {f1.dtype}/{f2.dtype}")
-    if coords.dtype != torch.float32:
-        raise TypeError(f"corr_level: coords must be f32, got {coords.dtype}")
-    if f1.dim() != 3 or f2.dim() != 4 or coords.dim() != 3:
-        raise ValueError("corr_level: expects f1 [N,P,C], f2 [N,H2,W2,C], coords [N,P,2]")
+    _check_lookup("corr_level", f1, f2, coords, radius)
     n, p, c = f1.shape
     h2, w2 = f2.shape[1:3]
-    if f2.shape[0] != n or f2.shape[3] != c or tuple(coords.shape) != (n, p, 2):
-        raise ValueError(
-            f"corr_level: shape mismatch f1 {tuple(f1.shape)}, f2 {tuple(f2.shape)}, "
-            f"coords {tuple(coords.shape)}"
-        )
-    if c not in (32, 64, 128, 256) or radius != 3:
-        raise ValueError(f"corr_level: kernel takes C in (32, 64, 128, 256) and radius 3, got {c}, {radius}")
-    if not (f1.is_contiguous() and f2.is_contiguous() and coords.is_contiguous()):
-        raise ValueError("corr_level: inputs must be contiguous")
-    if n > 65535:
-        raise ValueError(f"corr_level: at most 65535 edges per launch, got {n}")
-
     rd = 2 * radius + 1
     out = torch.empty((n, p, rd * rd), dtype=torch.float32, device=f1.device)
     if n == 0 or p == 0 or h2 == 0 or w2 == 0:
         return out.zero_()
-    lib = kernels.library("corr_level")
-    with torch.cuda.device(f1.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.corr_level_launch(
-            f1.data_ptr(), f2.data_ptr(), coords.data_ptr(), out.data_ptr(),
-            n, p, h2, w2, c, radius, int(f1.dtype == torch.bfloat16), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"corr_level: kernel launch failed with CUDA error {err}")
-    kernels.LAUNCHES["corr_level"] += 1
+    _launch(
+        "corr_level", f1.device, f1.data_ptr(), f2.data_ptr(), coords.data_ptr(), out.data_ptr(),
+        n, p, h2, w2, c, radius, int(f1.dtype == torch.bfloat16),
+    )
     return out
+
+
+# -----------------------------------------------------------------------------
+# split lookup (global backend)
+# -----------------------------------------------------------------------------
+
+
+def corr_slab_ref(f1: Tensor, f2: Tensor, coords: Tensor, radius: int = 3) -> Tensor:
+    """Plain version of stage A: slab[n, p, r, x] = ⟨f1[n, p], f2[n, y0+r, x]⟩
+    for the (2r+2) rows r of pixel p's window support, y0 = the window's
+    first row; rows outside the map are 0.
+
+    f1 [N, P, C], f2 [N, H2, W2, C], coords [N, P, 2] f32 →
+    [N, P, 2r+2, W2] f32 (f32 arithmetic for bf16 inputs too).
+    """
+    n, p, c = f1.shape
+    h2, w2 = f2.shape[1:3]
+    if h2 == 0:
+        return torch.zeros((n, p, 2 * radius + 2, w2), device=f1.device)
+    y0, _ = _window_origin(coords[..., 1], radius)
+    ys = y0[..., None] + torch.arange(2 * radius + 2, device=f1.device)  # [N, P, R]
+    vol = torch.bmm(f1.float(), f2.float().reshape(n, h2 * w2, c).transpose(1, 2))
+    rows = torch.gather(
+        vol.reshape(n, p, h2, w2), 2,
+        ys.clamp(0, h2 - 1)[..., None].expand(n, p, ys.shape[-1], w2),
+    )
+    ok = ((ys >= 0) & (ys < h2))[..., None]
+    return torch.where(ok, rows, torch.zeros((), device=f1.device))
+
+
+def corr_window_ref(slab: Tensor, coords: Tensor, radius: int = 3) -> Tensor:
+    """Plain version of stage B: the (2r+2) columns x0.. of the window from
+    the slab (columns outside the map 0), blended to the bilinear taps.
+
+    slab [N, P, 2r+2, W2] f32, coords [N, P, 2] f32 → [N, P, (2r+1)²] f32,
+    taps in (i, j) order with i the x-offset.
+    """
+    n, p, rows, w2 = slab.shape
+    if w2 == 0:
+        return slab.new_zeros((n, p, (2 * radius + 1) ** 2))
+    x0, dx = _window_origin(coords[..., 0], radius)
+    _, dy = _window_origin(coords[..., 1], radius)
+    xs = x0[..., None] + torch.arange(rows, device=slab.device)  # [N, P, R]
+    patch = torch.gather(slab, 3, xs.clamp(0, w2 - 1)[..., None, :].expand(n, p, rows, rows))
+    ok = ((xs >= 0) & (xs < w2))[..., None, :]
+    patch = torch.where(ok, patch, torch.zeros((), device=slab.device))
+    return _blend(patch, dx, dy, radius)
+
+
+def corr_level_split_ref(f1: Tensor, f2: Tensor, coords: Tensor, radius: int = 3) -> Tensor:
+    """The composition of the two stages' plain versions (contract of
+    :func:`corr_level_ref`)."""
+    return corr_window_ref(corr_slab_ref(f1, f2, coords, radius), coords, radius)
+
+
+def corr_slab(f1: Tensor, f2: Tensor, coords: Tensor, radius: int = 3) -> Tensor:
+    """Stage A: the contract of :func:`corr_slab_ref`. A CUDA tensor goes to
+    the ``corr_slab`` kernel of ``csrc/corr_split.cu`` (the inputs
+    :func:`corr_level` takes); a CPU tensor to the plain version."""
+    if f1.device.type == "cpu":
+        return corr_slab_ref(f1, f2, coords, radius)
+    _check_lookup("corr_slab", f1, f2, coords, radius)
+    if f2.data_ptr() % 16:
+        raise ValueError("corr_slab: f2 must start on a 16-byte boundary (16-byte loads)")
+    n, p, c = f1.shape
+    h2, w2 = f2.shape[1:3]
+    slab = torch.empty((n, p, 2 * radius + 2, w2), dtype=torch.float32, device=f1.device)
+    if slab.numel() == 0:
+        return slab
+    if h2 == 0:
+        return slab.zero_()
+    _launch(
+        "corr_slab", f1.device, f1.data_ptr(), f2.data_ptr(), coords.data_ptr(), slab.data_ptr(),
+        n, p, h2, w2, c, radius, int(f1.dtype == torch.bfloat16),
+    )
+    return slab
+
+
+def corr_window(slab: Tensor, coords: Tensor, radius: int = 3) -> Tensor:
+    """Stage B: the contract of :func:`corr_window_ref`. A CUDA tensor goes
+    to the ``corr_window`` kernel of ``csrc/corr_split.cu`` (f32 slab
+    [N, P, 8, W2] and f32 coords, contiguous, radius 3); a CPU tensor to the
+    plain version."""
+    if slab.device.type == "cpu":
+        return corr_window_ref(slab, coords, radius)
+    _check_cuda("corr_window", slab, coords)
+    if slab.dtype != torch.float32 or coords.dtype != torch.float32:
+        raise TypeError(f"corr_window: slab and coords must be f32, got {slab.dtype}/{coords.dtype}")
+    if slab.dim() != 4 or radius != 3 or slab.shape[2] != 2 * radius + 2:
+        raise ValueError(f"corr_window: expects slab [N,P,8,W2] and radius 3, "
+                         f"got {tuple(slab.shape)}, {radius}")
+    n, p, _, w2 = slab.shape
+    if tuple(coords.shape) != (n, p, 2):
+        raise ValueError(f"corr_window: coords {tuple(coords.shape)} do not match slab {tuple(slab.shape)}")
+    rd = 2 * radius + 1
+    out = torch.empty((n, p, rd * rd), dtype=torch.float32, device=slab.device)
+    if out.numel() == 0:
+        return out
+    if w2 == 0:
+        return out.zero_()
+    _launch("corr_window", slab.device, slab.data_ptr(), coords.data_ptr(), out.data_ptr(),
+            n, p, w2, radius)
+    return out
+
+
+def corr_level_split(f1: Tensor, f2: Tensor, coords: Tensor, radius: int = 3) -> Tensor:
+    """One pyramid level through the split pair: :func:`corr_slab` then
+    :func:`corr_window`, on the current stream. Contract and argument
+    checks of :func:`corr_level`; the slab is f32 [N, P, 8, W2]."""
+    return corr_window(corr_slab(f1, f2, coords, radius), coords, radius)
+
+
+class AltCorr:
+    """Feature-map pyramid for on-the-fly correlation (the backend's low
+    memory mode): the fmaps scaled by 1/4 and average-pooled per level, so
+    no O(N·HW²) volume is kept; each lookup runs :func:`corr_level_split`
+    per level."""
+
+    def __init__(self, pyramid: List[Tensor], radius: int):
+        self.pyramid = pyramid  # level i: [F, H/2^i, W/2^i, C]
+        self.radius = radius
+
+    @staticmethod
+    def build(fmaps: Tensor, num_levels: int = 4, radius: int = 3) -> "AltCorr":
+        f = fmaps * 0.25
+        pyr = [f]
+        for _ in range(num_levels - 1):
+            f = avg_pool2x2(f.movedim(-1, 1)).movedim(1, -1).contiguous()
+            pyr.append(f)
+        return AltCorr(pyr, radius)
+
+    def __call__(self, coords: Tensor, ii: Tensor, jj: Tensor) -> Tensor:
+        """coords [N, H, W, 2] level-0 targets of edges ii → jj →
+        [N, H, W, L·(2r+1)²] f32."""
+        n, h, w, _ = coords.shape
+        c = self.pyramid[0].shape[-1]
+        f1 = self.pyramid[0][ii].reshape(n, h * w, c)
+        cflat = coords.float().reshape(n, h * w, 2)
+        out = [
+            corr_level_split(f1, lvl[jj], (cflat / (2.0**i)).contiguous(), self.radius)
+            for i, lvl in enumerate(self.pyramid)
+        ]
+        return torch.cat(out, dim=-1).reshape(n, h, w, -1)
+
+
+# -----------------------------------------------------------------------------
+# fused lookup over the pyramid (tracking)
+# -----------------------------------------------------------------------------
 
 
 def lookup_levels(fmap1: Tensor, fmap2: Tensor, coords: Tensor, num_levels: int = 4):

@@ -1,12 +1,13 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C entry point. It is
-compiled with ``nvcc`` for ``sm_90a`` into a shared library under
-``droid_slam_tpu_torch/_build/`` (named by a hash of the source and the
-flags, so an edited source rebuilds) and loaded with ``ctypes``. Nothing
-is built when a module is imported: the first wrapper call that needs a
-kernel builds it, and :func:`build` builds several at once, one ``nvcc``
-process per source, all started together.
+Each kernel has a plain C entry point in a ``csrc/*.cu`` file (one file
+may hold several kernels). A source is compiled with ``nvcc`` for
+``sm_90a`` into a shared library under ``droid_slam_tpu_torch/_build/``
+(named by a hash of the source and the flags, so an edited source
+rebuilds) and loaded with ``ctypes``. Nothing is built when a module is
+imported: the first wrapper call that needs a kernel builds its source,
+and :func:`build` builds several at once, one ``nvcc`` process per
+source, all started together.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a wrapper
 adds one where it launches and nowhere else.
@@ -43,6 +44,16 @@ KERNELS = {
         "corr_level_launch",
         [_VOIDP] * 4 + [_INT] * 7 + [_VOIDP],
     ),
+    "corr_slab": (
+        "corr_split.cu",
+        "corr_slab_launch",
+        [_VOIDP] * 4 + [_INT] * 7 + [_VOIDP],
+    ),
+    "corr_window": (
+        "corr_split.cu",
+        "corr_window_launch",
+        [_VOIDP] * 3 + [_INT] * 4 + [_VOIDP],
+    ),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -65,39 +76,40 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin")
 
 
-def _library_path(name: str) -> Path:
-    src = CSRC / KERNELS[name][0]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+def _library_path(source: str) -> Path:
+    digest = hashlib.sha256((CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = tuple(KERNELS)) -> Dict[str, str]:
-    """Compile every named kernel whose library is missing, all in parallel.
+    """Compile the source of every named kernel whose library is missing,
+    all in parallel.
 
-    Returns {name: compiler output} (ptxas register / shared-memory report)
-    for the kernels compiled by this call. Raises if any compile fails.
+    Returns {source: compiler output} (ptxas register / shared-memory
+    report) for the sources compiled by this call. Raises if any compile
+    fails.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
-        lib = _library_path(name)
+    for source in dict.fromkeys(KERNELS[name][0] for name in names):
+        lib = _library_path(source)
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
-        procs[name] = (
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        procs[source] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp,
             lib,
         )
     logs, failed = {}, []
-    for name, (proc, tmp, lib) in procs.items():
-        logs[name] = proc.communicate()[0]
+    for source, (proc, tmp, lib) in procs.items():
+        logs[source] = proc.communicate()[0]
         if proc.returncode != 0:
-            failed.append(name)
+            failed.append(source)
             continue
         os.replace(tmp, lib)
-        lib.with_suffix(".log").write_text(logs[name])
+        lib.with_suffix(".log").write_text(logs[source])
     if failed:
         raise RuntimeError(
             "nvcc failed for " + ", ".join(failed) + ":\n"
@@ -107,14 +119,17 @@ def build(names: Iterable[str] = tuple(KERNELS)) -> Dict[str, str]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel, built first if needed."""
-    lib = _LIBS.get(name)
+    """The loaded library holding one kernel, built first if needed, with
+    the argument types of every entry point it holds declared."""
+    source = KERNELS[name][0]
+    lib = _LIBS.get(source)
     if lib is None:
         build([name])
-        lib = ctypes.CDLL(str(_library_path(name)))
-        _, entry, argtypes = KERNELS[name]
-        fn = getattr(lib, entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+        lib = ctypes.CDLL(str(_library_path(source)))
+        for src, entry, argtypes in KERNELS.values():
+            if src == source:
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        _LIBS[source] = lib
     return lib

@@ -1,0 +1,66 @@
+"""Backend: global bundle adjustment over the whole keyframe history
+(PyTorch).
+
+Counterpart of the JAX package's ``runtime/backend.py``: a fresh low-memory
+factor graph capped at 16·t edges, proximity edges over all keyframes,
+then ``update_lowmem``.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .factor_graph import FactorGraph
+
+
+def _chunk_ceil(n: int, chunk: int = 256, floor: int = 64) -> int:
+    """Round up to a multiple of the update-op chunk (at least ``floor``):
+    the edge store's size, whose per-edge hidden is the backend's largest
+    allocation."""
+    return max(-(-max(n, 1) // chunk) * chunk, floor)
+
+
+class DroidBackend:
+    """Global BA over ``video``'s keyframes with ``update_op`` (the
+    :class:`..models.update.UpdateModule` in the compute dtype)."""
+
+    def __init__(self, update_op, video, config):
+        self.update_op = update_op
+        self.video = video
+        self.config = config
+
+    def __call__(self, steps: int = 12) -> Tuple[int, int]:
+        """Run ``steps`` global-BA iterations; returns (edges, chunks): the
+        number of proximity edges and of update-operator chunks per step."""
+        cfg = self.config
+        v = self.video
+        t = v.counter
+
+        # monocular without a depth prior: fix the gauge first
+        if not cfg.stereo and float(v.disps_sens[:t].sum()) == 0.0:
+            v.normalize()
+
+        size = _chunk_ceil(16 * t, cfg.backend_chunk)
+        graph = FactorGraph(
+            v,
+            self.update_op,
+            max_factors=size,
+            # proximity with remove=False appends at most budget + 2 edges
+            edge_pad=size + 32,
+            inactive_pad=cfg.inactive_pad,
+            window_pad=cfg.window_pad,
+            upsample=cfg.upsample,
+            net_dtype=getattr(torch, cfg.compute_dtype),
+        )
+        graph.add_proximity_factors(
+            rad=cfg.backend_radius,
+            nms=cfg.backend_nms,
+            thresh=cfg.backend_thresh,
+            beta=cfg.beta,
+        )
+        n_edges = graph.num_active
+        n_chunks = graph.update_lowmem(steps=steps)
+        graph.clear_edges()
+        return n_edges, n_chunks

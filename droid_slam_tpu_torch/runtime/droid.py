@@ -1,22 +1,30 @@
-"""Droid: the SLAM system facade of the port (per-frame tracking).
+"""Droid: the SLAM system facade of the port.
 
 Counterpart of the JAX package's ``runtime/droid.py`` in its default fused
 engine: ``track()`` runs the motion filter and the frontend for one input
-frame on the tracking device. Global BA at terminate, the trajectory
-filler, the host-driven engine and stereo are later slices of the port
+frame on the tracking device; ``terminate()`` runs the global backend
+twice (7 then 12 steps) on a copy of the tracked state and returns the
+keyframe trajectory, or with a stream the trajectory of every frame. The
+host-driven engine, stereo and the sharded BA are later slices of the port
 (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Set, Tuple
+import copy
+import warnings
+from typing import Dict, List, Optional, Set, Tuple
 
+import numpy as np
 import torch
 
 from ..models.droid_net import DroidNet, init_params
+from ..ops import lie
 from . import fused
+from .backend import DroidBackend
 from .config import DroidConfig
-from .video import _depth_to_disp_sens
+from .trajectory_filler import PoseTrajectoryFiller
+from .video import VideoState, _depth_to_disp_sens
 
 
 def resolve_device(device=None) -> torch.device:
@@ -33,7 +41,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 class Droid:
-    """Per-frame tracking with the fused engine.
+    """Per-frame tracking with the fused engine, global BA and trajectory
+    fill at the end.
 
     ``params`` is a state dict for :class:`DroidNet` (from
     :func:`..models.weights.params_from_jax` or :func:`init_params`); it
@@ -55,6 +64,14 @@ class Droid:
         self.net = net.to(self.device).eval()
         self._state = fused.init_state(config, self.device)
         self._track_step = fused.build_track_step(self.net, config)
+        cdt = getattr(torch, config.compute_dtype)
+        self._update_op = (
+            self.net.update if cdt == torch.float32 else copy.deepcopy(self.net.update).to(cdt)
+        )
+        self.video: Optional[VideoState] = None  # made by terminate
+        # (edges, update-operator chunks per step) of terminate's two
+        # global-BA passes
+        self.backend_runs: List[Tuple[int, int]] = []
 
     @torch.no_grad()
     def track(self, tstamp, image, depth=None, intrinsics=None) -> None:
@@ -113,8 +130,37 @@ class Droid:
         st = self._state
         return self._edge_set(st.inac_ii, st.inac_jj, st.inac_valid)
 
-    def terminate(self, stream=None):
-        raise NotImplementedError(
-            "Droid.terminate (global BA, trajectory fill) is ROADMAP.md queue 1 "
-            "item 8 of the port, not yet ported"
-        )
+    def _sync_fused_state(self) -> VideoState:
+        """Copy the tracked state into a fresh :class:`VideoState` for the
+        backend and the trajectory filler. The buffers are copies, not
+        aliases: terminate may run more than once, and each run starts again
+        from the tracked state."""
+        st = self._state
+        v = VideoState.__new__(VideoState)  # no default buffers: all are copied in
+        v.config = self.config
+        v.counter = st.counter
+        if v.counter >= st.poses.shape[0]:
+            warnings.warn(
+                f"keyframe buffer saturated ({v.counter}/{st.poses.shape[0]}): later "
+                "keyframes were dropped; rerun with a larger DroidConfig.buffer",
+                RuntimeWarning,
+            )
+        for name in ("tstamp", "images", "poses", "disps", "disps_sens", "intrinsics",
+                     "fmaps", "nets", "inps"):
+            setattr(v, name, getattr(st, name).clone())
+        v.disps_up = st.disps_up.clone() if self.config.upsample else None
+        self.video = v
+        return v
+
+    @torch.no_grad()
+    def terminate(self, stream=None) -> np.ndarray:
+        """Global BA (7 then 12 steps) and, with ``stream`` (yielding
+        (tstamp, image, intrinsics) for every frame), the trajectory fill.
+        Returns camera-to-world poses [T, 7] as (t, q_xyzw): the keyframes'
+        without a stream, every stream frame's with one."""
+        v = self._sync_fused_state()
+        backend = DroidBackend(self._update_op, v, self.config)
+        self.backend_runs = [backend(7), backend(12)]
+        if stream is not None:
+            return PoseTrajectoryFiller(self.net, self._update_op, v, self.config)(stream)
+        return lie.inv(v.poses[: v.counter]).cpu().numpy()

@@ -1,13 +1,15 @@
-"""Keyframe-buffer helpers of the tracking path (PyTorch).
+"""Keyframe buffer and its helpers (PyTorch).
 
-Counterpart of the helpers in the JAX package's ``runtime/video.py``: the
-RGB-D prior, the masked frame distance behind proximity edge selection and
-the keyframe cull test, and the padded window read/write used for the
-per-keyframe damping.
+Counterpart of the JAX package's ``runtime/video.py``: the RGB-D prior, the
+masked frame distance behind proximity edge selection and the keyframe cull
+test, the padded window read/write used for the per-keyframe damping, and
+:class:`VideoState`, the keyframe buffers that the global backend and the
+trajectory filler work on.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops import lie
@@ -75,3 +77,80 @@ def persist_window(buf: Tensor, new_win: Tensor, touched: Tensor, kf0: Tensor) -
     t = touched.reshape((K,) + (1,) * (buf.dim() - 1))
     pad[rows] = torch.where(t, new_win.to(buf.dtype), pad[rows])
     return pad[: buf.shape[0]]
+
+
+def _set_range(buf: Tensor, start: int, values: Tensor) -> None:
+    """buf[start : start + len(values)] = values in place, cast to buf's
+    dtype; rows past the end of buf are dropped."""
+    n = max(min(values.shape[0], buf.shape[0] - start), 0)
+    buf[start : start + n] = values[:n].to(buf.dtype)
+
+
+def _normalize(poses: Tensor, disps: Tensor, count: int):
+    """Fix the monocular gauge: unit mean inverse depth over the first
+    ``count`` frames (depth_video.py:132-139)."""
+    s = disps[:count].sum() / (max(count, 1) * disps.shape[1] * disps.shape[2])
+    poses = poses.clone()
+    disps = disps.clone()
+    disps[:count] = disps[:count] / s
+    poses[:count, :3] = poses[:count, :3] * s
+    return poses, disps
+
+
+class VideoState:
+    """The keyframe buffers of one device (depth_video.py:24-45 layout).
+
+    Buffers are plain tensors that the backend and the trajectory filler
+    replace or update in place: tstamp [B], images [B, H, W, 3] uint8,
+    poses [B, 7] world→camera (t, q_xyzw), disps / disps_sens [B, h, w],
+    intrinsics [B, 4] at 1/8 resolution, fmaps [B, 1, h, w, 128],
+    nets / inps [B, h, w, 128], disps_up [B, H, W]. ``counter`` is the
+    host-side keyframe count.
+    """
+
+    def __init__(self, config, device):
+        B = config.buffer
+        H, W = config.image_size
+        h, w = config.feat_size
+        self.config = config
+        self.counter = 0
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        self.tstamp = zeros(B)
+        self.images = zeros(B, H, W, 3, dtype=torch.uint8)
+        self.poses = lie.identity((B,), device=device)
+        self.disps = torch.ones((B, h, w), device=device)
+        self.disps_sens = zeros(B, h, w)
+        self.disps_up = zeros(B, H, W)
+        self.intrinsics = zeros(B, 4)
+        self.fmaps = zeros(B, 1, h, w, 128)
+        self.nets = zeros(B, h, w, 128)
+        self.inps = zeros(B, h, w, 128)
+
+    def distance(self, ii, jj, beta: float = 0.3, bidirectional: bool = True) -> np.ndarray:
+        """Flow-magnitude distance between keyframe pairs
+        (depth_video.py:152-188) as a host array. Pairs go to the device in
+        chunks of 4096: the query materialises [pairs, h, w, 4]
+        intermediates, and the backend's all-pairs query grows as t²."""
+        ii = np.asarray(ii, np.int64).reshape(-1)
+        jj = np.asarray(jj, np.int64).reshape(-1)
+        chunk = 4096
+        dev = self.poses.device
+        out = []
+        for s in range(0, len(ii), chunk):
+            i = torch.as_tensor(ii[s : s + chunk], device=dev)
+            j = torch.as_tensor(jj[s : s + chunk], device=dev)
+            d = _frame_distance(self.poses, self.disps, self.intrinsics[0], i, j, beta)
+            if bidirectional:
+                d = 0.5 * (d + _frame_distance(self.poses, self.disps, self.intrinsics[0], j, i, beta))
+            out.append(d.cpu().numpy())
+        return np.concatenate(out) if out else np.zeros(0, np.float32)
+
+    def distance_matrix(self, t: int, beta: float = 0.3) -> np.ndarray:
+        ii, jj = np.meshgrid(np.arange(t), np.arange(t), indexing="ij")
+        return self.distance(ii.reshape(-1), jj.reshape(-1), beta=beta).reshape(t, t)
+
+    def normalize(self) -> None:
+        self.poses, self.disps = _normalize(self.poses, self.disps, self.counter)

@@ -1,5 +1,5 @@
 """Port device rules: the port runs on CUDA unless told otherwise, the
-kernel wrapper takes its plain version only for CPU tensors, and neither
+kernel wrappers take their plain versions only for CPU tensors, and neither
 the package nor chip_smoke.py imports JAX or the JAX package."""
 
 import ast
@@ -35,8 +35,9 @@ def test_droid_cpu_tracks_on_request():
     d.track(0.0, img, intrinsics=np.array([64.0, 64.0, 32.0, 32.0], np.float32))
     assert d.counter == 1
     assert d.poses.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        d.terminate()
+    traj = d.terminate()
+    assert traj.shape == (1, 7)
+    assert np.isfinite(traj).all()
 
 
 def test_corr_level_cpu_uses_plain_version_without_launch():
@@ -48,6 +49,18 @@ def test_corr_level_cpu_uses_plain_version_without_launch():
     out = corr.corr_level(f1, f2, coords)
     assert torch.equal(out, corr.corr_level_ref(f1, f2, coords))
     assert kernels.LAUNCHES["corr_level"] == 0
+
+
+def test_corr_level_split_cpu_uses_plain_versions_without_launch():
+    kernels.reset_launches()
+    r = np.random.default_rng(2)
+    f1 = torch.from_numpy(r.standard_normal((2, 12, 32)).astype(np.float32))
+    f2 = torch.from_numpy(r.standard_normal((2, 3, 4, 32)).astype(np.float32))
+    coords = torch.from_numpy((r.random((2, 12, 2)) * 4).astype(np.float32))
+    out = corr.corr_level_split(f1, f2, coords)
+    assert torch.equal(out, corr.corr_level_split_ref(f1, f2, coords))
+    assert kernels.LAUNCHES["corr_slab"] == 0
+    assert kernels.LAUNCHES["corr_window"] == 0
 
 
 def _imports(path: Path):

@@ -221,3 +221,117 @@ def test_corr_lookup_matches_jax():
     # |corr| reaches ~10 at C=128: 1e-4 relative to the largest value
     scale = float(np.abs(np.asarray(want)).max())
     assert _err(want, got) < TOL * max(scale, 1.0)
+
+
+# -----------------------------------------------------------------------------
+# correlation: the backend's split lookup and the filler's volume mode
+# -----------------------------------------------------------------------------
+
+
+def test_corr_level_split_ref_matches_xla_sampler():
+    f1, f2, coords = _case(np.random.default_rng(21), N=2)
+    with jax.default_matmul_precision("highest"):
+        want = jcorr._alt_corr_level_T(*map(jnp.asarray, (f1, f2, coords)), 3)
+    got = tcorr.corr_level_split_ref(_t(f1), _t(f2), _t(coords))
+    assert got.shape == want.shape
+    assert _err(want, got) < TOL
+
+
+def test_corr_level_split_ref_matches_pallas_split_interpret():
+    f1, f2, coords = _case(np.random.default_rng(22))
+    want = jpallas.corr_level_pallas_split(*map(jnp.asarray, (f1, f2, coords)), interpret=True)
+    got = tcorr.corr_level_split_ref(_t(f1), _t(f2), _t(coords)).transpose(1, 2)
+    diff = np.abs(np.asarray(want) - got.numpy())
+    assert diff.max() < 1e-2
+    assert diff.mean() < 2e-3
+
+
+def test_corr_slab_ref_matches_numpy_slab():
+    """Row selection and zero rows against an explicit slab; exact up to
+    the f32 summation order of the dot."""
+    f1, f2, coords = _case(np.random.default_rng(23), N=2)
+    n, p, _ = f1.shape
+    h2, w2 = f2.shape[1:3]
+    coords[0, :4, 1] = [-9.0, -3.5, h2 + 2.5, 1e5]  # windows partly or wholly off the map
+    got = tcorr.corr_slab_ref(_t(f1), _t(f2), _t(coords)).numpy()
+    want = np.zeros((n, p, 8, w2), np.float32)
+    y0 = np.floor(np.clip(coords[..., 1] - 3, -1e4, 1e4)).astype(np.int64)
+    for e in range(n):
+        for q in range(p):
+            for r in range(8):
+                y = y0[e, q] + r
+                if 0 <= y < h2:
+                    want[e, q, r] = f2[e, y] @ f1[e, q]
+    assert (want[0, :4] == 0).any() and (want[0, 3] == 0).all()
+    scale = float(np.abs(want).max())
+    assert np.abs(got - want).max() <= 1e-6 * scale
+    np.testing.assert_array_equal(got == 0, want == 0)
+
+
+@pytest.mark.parametrize("shape", [(0, 3), (3, 0)])
+def test_corr_lookups_on_an_empty_map_are_zero(shape):
+    """The coarsest level of a small image can have no rows or columns."""
+    f1, _, coords = _case(np.random.default_rng(28))
+    f2 = _t(np.zeros((1,) + shape + (16,), np.float32))
+    for fn in (tcorr.corr_level_ref, tcorr.corr_level_split_ref):
+        out = fn(_t(f1), f2, _t(coords))
+        assert out.shape == (1, f1.shape[1], 49)
+        assert float(out.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("far", [1000.0, 1e5])
+def test_corr_level_split_out_of_range_is_exact_zero(far):
+    f1, f2, _ = _case(np.random.default_rng(24))
+    coords = np.full(f1.shape[:2] + (2,), far, np.float32)
+    for c in (coords, -coords):
+        slab = tcorr.corr_slab_ref(_t(f1), _t(f2), _t(c))
+        assert float(slab.abs().max()) == 0.0
+        assert float(tcorr.corr_window_ref(slab, _t(c)).abs().max()) == 0.0
+
+
+def _fmaps_coords(seed, n=3, h=8, w=8, c=128):
+    r = np.random.default_rng(seed)
+    fmaps = r.standard_normal((n, h, w, c)).astype(np.float32)
+    coords = (r.random((n, h, w, 2)) * np.array([w + 4, h + 4]) - 2).astype(np.float32)
+    return fmaps, coords
+
+
+def test_alt_corr_matches_jax():
+    fmaps, coords = _fmaps_coords(25)
+    ii = np.array([0, 1, 2, 0], np.int32)
+    jj = np.array([1, 2, 0, 0], np.int32)
+    coords = np.concatenate([coords, coords[:1]])
+    with jax.default_matmul_precision("highest"):
+        want = jcorr.AltCorr.build(jnp.asarray(fmaps))(jnp.asarray(coords), jnp.asarray(ii), jnp.asarray(jj))
+    got = tcorr.AltCorr.build(_t(fmaps))(_t(coords), _t(ii).long(), _t(jj).long())
+    assert got.shape == want.shape == (4, 8, 8, 196)
+    scale = float(np.abs(np.asarray(want)).max())
+    assert _err(want, got) < TOL * max(scale, 1.0)
+
+
+def test_corr_pyramid_matches_jax():
+    fmaps, coords = _fmaps_coords(26, n=2)
+    f2 = np.roll(fmaps, 1, axis=0)
+    with jax.default_matmul_precision("highest"):
+        jpyr = jcorr.CorrPyramid.build(jnp.asarray(fmaps), jnp.asarray(f2))
+        want = jpyr(jnp.asarray(coords))
+    tpyr = tcorr.CorrPyramid.build(_t(fmaps), _t(f2))
+    for a, b in zip(jpyr.levels, tpyr.levels):
+        assert tuple(a.shape) == tuple(b.shape)
+        assert _err(a, b) < TOL * max(float(np.abs(np.asarray(a)).max()), 1.0)
+    got = tpyr(_t(coords))
+    assert got.shape == want.shape == (2, 8, 8, 196)
+    assert _err(want, got) < TOL * max(float(np.abs(np.asarray(want)).max()), 1.0)
+
+
+def test_corr_index_matches_jax():
+    r = np.random.default_rng(27)
+    vol = r.standard_normal((2, 3, 4, 5, 6)).astype(np.float32)
+    coords = (r.random((2, 3, 4, 2)) * np.array([12, 10]) - 3).astype(np.float32)
+    coords[0, 0, 0] = [1e5, -1e5]
+    with jax.default_matmul_precision("highest"):
+        want = jcorr.corr_index(jnp.asarray(vol), jnp.asarray(coords))
+    got = tcorr.corr_index(_t(vol), _t(coords))
+    assert got.shape == want.shape == (2, 3, 4, 49)
+    assert _err(want, got) < TOL
+    assert float(got[0, 0, 0].abs().max()) == 0.0
