@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.segment import segment_sum
+
 Tensor = torch.Tensor
 
 
@@ -103,11 +105,11 @@ class GraphAgg(nn.Module):
         n, ch, ht, wd = net.shape
         net = F.relu(self.conv1(net))
         seg = ii if edge_valid is None else torch.where(edge_valid, ii, num_frames)
-        # scatter-mean accumulated in float32 whatever the compute dtype
-        sums = net.new_zeros((num_frames + 1, ch * ht * wd), dtype=torch.float32)
-        sums.index_add_(0, seg, net.reshape(n, -1).float())
+        # scatter-mean accumulated in float32 whatever the compute dtype, in
+        # an order fixed by the inputs; the counts are exact in any order
+        sums = segment_sum(seg, net.reshape(n, -1).float(), num_frames)
         counts = sums.new_zeros(num_frames + 1).index_add_(0, seg, sums.new_ones(n))
-        mean = sums[:num_frames] / counts[:num_frames].clamp(min=1.0)[:, None]
+        mean = sums / counts[:num_frames].clamp(min=1.0)[:, None]
         net = mean.to(net.dtype).reshape(num_frames, ch, ht, wd)
 
         net = F.relu(self.conv2(net))

@@ -27,6 +27,7 @@ import torch
 
 from . import lie
 from . import projective as pops
+from .segment import segment_sum
 
 Tensor = torch.Tensor
 
@@ -183,10 +184,9 @@ def build_edge_blocks(
 
 def _scatter_rows(blocks: Tensor, idx: Tensor, ok: Tensor, n_seg: int) -> Tensor:
     """Sum rows of ``blocks`` [N, ...] into [n_seg, ...] at ``idx``; rows
-    with ``ok`` false go to a dump row that is dropped. Accumulates in f32."""
-    out = blocks.new_zeros((n_seg + 1,) + blocks.shape[1:], dtype=torch.float32)
-    out.index_add_(0, torch.where(ok, idx, n_seg), blocks.float())
-    return out[:n_seg].to(blocks.dtype)
+    with ``ok`` false are dropped. Accumulates in f32, in an order fixed by
+    the inputs on either device (:func:`.segment.segment_sum`)."""
+    return segment_sum(torch.where(ok, idx, n_seg), blocks.float(), n_seg).to(blocks.dtype)
 
 
 def _scatter_mat(blocks: Tensor, ii: Tensor, jj: Tensor, n: int, m: int) -> Tensor:
@@ -299,11 +299,11 @@ def ba_iteration_dense_window(
     # ---- dense windowed E: edge couplings scattered to (k, p) cells ----
     in_k = edge_valid & (k_rel >= 0) & (k_rel < kwin)
     k_cell = k_rel.clamp(0, kwin - 1) * Pw
-    E = torch.zeros((kwin * Pw + 1, 6, hw), dtype=torch.float32, device=dev)
-    for blk, p_rel in ((blocks.Ei, ii_r), (blocks.Ej, jj_r)):
-        ok = in_k & (p_rel >= 0) & (p_rel < Pw)
-        E.index_add_(0, torch.where(ok, k_cell + p_rel, kwin * Pw), blk.to(sd).float())
-    E = E[: kwin * Pw].to(sd).reshape(kwin, Pw * 6, hw) * live6[None, :, None].to(sd)
+    # the Ei rows, then the Ej rows, each in edge order
+    cells = [torch.where(in_k & (p_rel >= 0) & (p_rel < Pw), k_cell + p_rel, kwin * Pw)
+             for p_rel in (ii_r, jj_r)]
+    E = segment_sum(torch.cat(cells), torch.cat([blocks.Ei, blocks.Ej]).to(sd).float(), kwin * Pw)
+    E = E.to(sd).reshape(kwin, Pw * 6, hw) * live6[None, :, None].to(sd)
 
     EQ = E * Q[:, None, :].to(sd)
     E32, EQ32 = E.float(), EQ.float()

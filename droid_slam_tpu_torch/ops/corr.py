@@ -23,11 +23,15 @@ Three formulations, as in the JAX package:
 
 Each kernel wrapper runs its plain version (``*_ref``) on a CPU tensor and
 launches its kernel on a CUDA tensor; there is no fallback between the two.
+For bf16 features ``corr_level`` and ``corr_slab`` run tensor-core tiles of
+64 source pixels against the f2 rows of the tile's window band, staged in
+shared memory (``csrc/corr_tile.cuh``); :func:`corr_tile_plan` lays the
+tile out.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -163,6 +167,53 @@ def corr_level_ref(f1: Tensor, f2: Tensor, coords: Tensor, radius: int = 3) -> T
     return out.reshape(n, p, -1)
 
 
+# -----------------------------------------------------------------------------
+# the tile plan of the bf16 kernels (csrc/corr_tile.cuh)
+# -----------------------------------------------------------------------------
+
+TILE_PIXELS = 64  # source pixels per block: 4 warps of 16 (one m16 tile each)
+ROW_PAD_BYTES = 16  # per staged f2 row: the 8 rows of a B fragment load on distinct banks
+STAGES = 3  # f2 row buffers: two rows in flight while one is multiplied
+SMEM_LIMIT = 232448  # shared memory one block may use on Hopper (227 KB)
+_RED = 2 * TILE_PIXELS // 32 * 4  # the band reduction's scratch
+# per kernel: (static shared bytes, dynamic bytes beside the f2 row
+# buffers): corr_level keeps the tile's 8×8 f32 supports and its pixels'
+# origins and fractions; corr_slab writes straight from the accumulators
+_TILE_SMEM = {
+    "corr_level": (4 * TILE_PIXELS * 4 + _RED, TILE_PIXELS * 64 * 4),
+    "corr_slab": (TILE_PIXELS * 4 + _RED, 0),
+}
+
+
+class TilePlan(NamedTuple):
+    """Launch layout of a bf16 tile kernel, passed to its entry point, which
+    checks it against the source's layout."""
+
+    tp: int  # source pixels per block
+    w2pad: int  # staged columns: W2 rounded up to the n8 tile
+    row_stride: int  # bytes per staged f2 column: 2·C + 16
+    n_tiles: int  # n8 tiles per accumulator chunk: w2pad/8 rounded up to 1, 2, 4 or 8
+    smem_bytes: int  # dynamic shared memory of one block
+    grid: Tuple[int, int]  # (pixel tiles, edges)
+
+
+def corr_tile_plan(kernel: str, n: int, p: int, w2: int, c: int) -> TilePlan:
+    """The tile plan of ``kernel`` ("corr_level" or "corr_slab") for N edges,
+    P source pixels, a map W2 wide and C channels. Raises ValueError when a
+    block would need more than the 227 KB of shared memory Hopper gives it."""
+    static, extra = _TILE_SMEM[kernel]
+    w2pad = -(-w2 // 8) * 8
+    row_stride = 2 * c + ROW_PAD_BYTES
+    smem = STAGES * w2pad * row_stride + extra
+    if static + smem > SMEM_LIMIT:
+        raise ValueError(
+            f"{kernel}: a tile of a map {w2} wide at C={c} needs {static + smem} bytes of "
+            f"shared memory, above the {SMEM_LIMIT} (227 KB) a block can use"
+        )
+    n_tiles = min(t for t in (1, 2, 4, 8) if 8 * t >= min(w2pad, 64))
+    return TilePlan(TILE_PIXELS, w2pad, row_stride, n_tiles, smem, (-(-p // TILE_PIXELS), n))
+
+
 def _check_cuda(name: str, *tensors: Tensor) -> None:
     dev = tensors[0].device
     if dev.type != "cuda":
@@ -195,15 +246,17 @@ def _check_lookup(name: str, f1: Tensor, f2: Tensor, coords: Tensor, radius: int
         raise ValueError(f"{name}: at most 65535 edges per launch, got {n}")
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    """Call kernel ``name``'s C entry point on the current stream of
-    ``device``; raise on a non-zero CUDA error, else count the launch."""
-    fn = getattr(kernels.library(name), kernels.KERNELS[name][1])
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    kernels.LAUNCHES[name] += 1
+def _plan_args(name: str, f1: Tensor, f2: Tensor) -> Tuple[int, int, int, int, int]:
+    """The tile plan passed to a lookup kernel's entry point (bf16), or
+    zeros (f32, which runs the first design); raises on 16-byte misalignment
+    of the feature maps (16-byte copies) or on a plan that does not fit."""
+    if f1.data_ptr() % 16 or f2.data_ptr() % 16:
+        raise ValueError(f"{name}: f1 and f2 must start on a 16-byte boundary (16-byte loads)")
+    if f1.dtype != torch.bfloat16:
+        return 0, 0, 0, 0, 0
+    n, p, c = f1.shape
+    plan = corr_tile_plan(name, n, p, f2.shape[2], c)
+    return plan.tp, plan.w2pad, plan.row_stride, plan.n_tiles, plan.smem_bytes
 
 
 def corr_level(f1: Tensor, f2: Tensor, coords: Tensor, radius: int = 3) -> Tensor:
@@ -211,7 +264,8 @@ def corr_level(f1: Tensor, f2: Tensor, coords: Tensor, radius: int = 3) -> Tenso
 
     Same contract as :func:`corr_level_ref`. A CUDA tensor goes to the
     kernel of ``csrc/corr_level.cu`` (bf16 or f32 features, f32 coords, all
-    contiguous, C ∈ {32, 64, 128, 256}, radius 3); anything it does not take
+    contiguous, feature maps 16-byte aligned, C ∈ {32, 64, 128, 256},
+    radius 3, a bf16 tile plan within 227 KB); anything it does not take
     raises. A CPU tensor goes to the plain version.
     """
     if f1.device.type == "cpu":
@@ -223,9 +277,10 @@ def corr_level(f1: Tensor, f2: Tensor, coords: Tensor, radius: int = 3) -> Tenso
     out = torch.empty((n, p, rd * rd), dtype=torch.float32, device=f1.device)
     if n == 0 or p == 0 or h2 == 0 or w2 == 0:
         return out.zero_()
-    _launch(
+    plan = _plan_args("corr_level", f1, f2)
+    kernels.launch(
         "corr_level", f1.device, f1.data_ptr(), f2.data_ptr(), coords.data_ptr(), out.data_ptr(),
-        n, p, h2, w2, c, radius, int(f1.dtype == torch.bfloat16),
+        n, p, h2, w2, c, radius, int(f1.dtype == torch.bfloat16), *plan,
     )
     return out
 
@@ -290,8 +345,6 @@ def corr_slab(f1: Tensor, f2: Tensor, coords: Tensor, radius: int = 3) -> Tensor
     if f1.device.type == "cpu":
         return corr_slab_ref(f1, f2, coords, radius)
     _check_lookup("corr_slab", f1, f2, coords, radius)
-    if f2.data_ptr() % 16:
-        raise ValueError("corr_slab: f2 must start on a 16-byte boundary (16-byte loads)")
     n, p, c = f1.shape
     h2, w2 = f2.shape[1:3]
     slab = torch.empty((n, p, 2 * radius + 2, w2), dtype=torch.float32, device=f1.device)
@@ -299,9 +352,10 @@ def corr_slab(f1: Tensor, f2: Tensor, coords: Tensor, radius: int = 3) -> Tensor
         return slab
     if h2 == 0:
         return slab.zero_()
-    _launch(
+    plan = _plan_args("corr_slab", f1, f2)
+    kernels.launch(
         "corr_slab", f1.device, f1.data_ptr(), f2.data_ptr(), coords.data_ptr(), slab.data_ptr(),
-        n, p, h2, w2, c, radius, int(f1.dtype == torch.bfloat16),
+        n, p, h2, w2, c, radius, int(f1.dtype == torch.bfloat16), *plan,
     )
     return slab
 
@@ -328,7 +382,7 @@ def corr_window(slab: Tensor, coords: Tensor, radius: int = 3) -> Tensor:
         return out
     if w2 == 0:
         return out.zero_()
-    _launch("corr_window", slab.device, slab.data_ptr(), coords.data_ptr(), out.data_ptr(),
+    kernels.launch("corr_window", slab.device, slab.data_ptr(), coords.data_ptr(), out.data_ptr(),
             n, p, w2, radius)
     return out
 

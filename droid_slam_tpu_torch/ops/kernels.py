@@ -1,16 +1,18 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 Each kernel has a plain C entry point in a ``csrc/*.cu`` file (one file
-may hold several kernels). A source is compiled with ``nvcc`` for
-``sm_90a`` into a shared library under ``droid_slam_tpu_torch/_build/``
-(named by a hash of the source and the flags, so an edited source
-rebuilds) and loaded with ``ctypes``. Nothing is built when a module is
+may hold several kernels; shared device code lives in ``csrc/*.cuh``). A
+source is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
+``droid_slam_tpu_torch/_build/`` (named by a hash of the source, every
+header and the flags, so an edited source or header rebuilds) and loaded
+with ``ctypes``. Nothing is built when a module is
 imported: the first wrapper call that needs a kernel builds its source,
 and :func:`build` builds several at once, one ``nvcc`` process per
 source, all started together.
 
-``LAUNCHES`` counts, per kernel, the launches its wrapper made; a wrapper
-adds one where it launches and nowhere else.
+``LAUNCHES`` counts, per kernel, the launches its wrapper made: a wrapper
+launches through :func:`launch`, which adds one per launch and is the only
+place that does.
 """
 
 from __future__ import annotations
@@ -42,12 +44,12 @@ KERNELS = {
     "corr_level": (
         "corr_level.cu",
         "corr_level_launch",
-        [_VOIDP] * 4 + [_INT] * 7 + [_VOIDP],
+        [_VOIDP] * 4 + [_INT] * 12 + [_VOIDP],
     ),
     "corr_slab": (
         "corr_split.cu",
         "corr_slab_launch",
-        [_VOIDP] * 4 + [_INT] * 7 + [_VOIDP],
+        [_VOIDP] * 4 + [_INT] * 12 + [_VOIDP],
     ),
     "corr_window": (
         "corr_split.cu",
@@ -77,7 +79,12 @@ def _nvcc() -> str:
 
 
 def _library_path(source: str) -> Path:
-    digest = hashlib.sha256((CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of one source, named by a hash of the source, every
+    ``csrc/*.cuh`` header (sorted by name) and the flags."""
+    digest = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 
 
@@ -118,6 +125,28 @@ def build(names: Iterable[str] = tuple(KERNELS)) -> Dict[str, str]:
     return logs
 
 
+def sass_counts(names: Iterable[str] = tuple(KERNELS), opcodes=("HMMA", "HGMMA")) -> Dict[str, Dict[str, int]]:
+    """{function: {opcode: count}} of the SASS in the built libraries of the
+    named kernels (``cuobjdump -sass``, from the toolkit that holds nvcc):
+    which functions run on the tensor cores. Builds what is missing."""
+    build(names)
+    cuobjdump = str(Path(_nvcc()).with_name("cuobjdump"))
+    counts: Dict[str, Dict[str, int]] = {}
+    for source in dict.fromkeys(KERNELS[name][0] for name in names):
+        text = subprocess.run([cuobjdump, "-sass", str(_library_path(source))],
+                              capture_output=True, text=True, check=True).stdout
+        func = None
+        for line in text.splitlines():
+            if "Function :" in line:
+                func = line.split("Function :", 1)[1].strip()
+                counts[func] = {op: 0 for op in opcodes}
+            elif func is not None:
+                for op in opcodes:
+                    if f" {op}." in line or f" {op} " in line:
+                        counts[func][op] += 1
+    return counts
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library holding one kernel, built first if needed, with
     the argument types of every entry point it holds declared."""
@@ -133,3 +162,17 @@ def library(name: str) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
         _LIBS[source] = lib
     return lib
+
+
+def launch(name: str, device, *args) -> None:
+    """Call kernel ``name``'s C entry point with ``args`` on the current
+    stream of ``device``; raise on a non-zero CUDA error, else count the
+    launch."""
+    import torch
+
+    fn = getattr(library(name), KERNELS[name][1])
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    LAUNCHES[name] += 1

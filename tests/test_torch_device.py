@@ -63,6 +63,42 @@ def test_corr_level_split_cpu_uses_plain_versions_without_launch():
     assert kernels.LAUNCHES["corr_window"] == 0
 
 
+def test_segment_sum_cpu_uses_plain_version_and_no_atomics_elsewhere(monkeypatch):
+    """On the CPU segment_sum is index_add_; off the CPU it never reaches
+    index_add_ (atomic adds on a CUDA tensor). Meta tensors stand in for
+    CUDA ones."""
+    from droid_slam_tpu_torch.ops import segment
+
+    r = np.random.default_rng(3)
+    idx = torch.from_numpy(r.integers(-1, 6, 40))
+    src = torch.from_numpy(r.standard_normal((40, 3, 4)).astype(np.float32))
+    assert torch.equal(segment.segment_sum(idx, src, 5), segment.segment_sum_ref(idx, src, 5))
+
+    def no_index_add(*args, **kwargs):
+        raise AssertionError("index_add_ off the CPU")
+
+    monkeypatch.setattr(torch.Tensor, "index_add_", no_index_add)
+    out = segment.segment_sum(idx.to("meta"), src.to("meta"), 5)
+    assert out.shape == (5, 3, 4) and out.dtype == torch.float32
+
+
+def test_library_hash_covers_the_headers(tmp_path, monkeypatch):
+    """An edit to a shared csrc/*.cuh header renames every library, so a
+    build cache cannot load code compiled from the old header."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, csrc)
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers
+    before = {src: kernels._library_path(src) for src, _, _ in kernels.KERNELS.values()}
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    after = {src: kernels._library_path(src) for src in before}
+    assert all(before[src] != after[src] for src in before)
+    assert after == {src: kernels._library_path(src) for src in before}  # stable
+
+
 def _imports(path: Path):
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
         if isinstance(node, ast.Import):
