@@ -17,8 +17,9 @@ Phases, each of which fails the run:
      versions at the backend's shapes (one chunk of 256 edges, same
      widths, all 4 levels): iid coords in bf16 and f32 (timed, with
      corr_level's time on the same inputs beside them: the fused-vs-split
-     A/B), smooth and far-out coords in bf16, and the 384x512 levels at 32
-     edges;
+     A/B, and with one F.grid_sample call on the same slab, corr_window's
+     library yardstick, which it must not lose to at iid bf16), smooth and
+     far-out coords in bf16, and the 384x512 levels at 32 edges;
   3c. hold segment_sum, the order-fixed float scatter-add of the BA and
      GraphAgg (index_put_ with accumulate on the card), against index_add_
      (atomic adds on the card) at the tracking and terminate shapes: it must
@@ -76,12 +77,15 @@ KERNEL_TOL = 1e-4  # max |kernel − plain| relative to max |plain|
 SEGMENT_TOL = 1e-5
 SEGMENT_REPEATS = 5
 
-# ms per 4-level bf16 lookup of the first designs (one warp per pixel, f32
-# FMA), on the inputs of phases 3 and 3b: constants, not measured by this
-# run; taken with CUDA events by earlier versions of this script on an
-# NVIDIA H100 80GB HBM3 at 700 W (the first-design column of PERF.md §6).
+# ms per 4-level bf16 lookup of the first designs (corr_level, corr_slab:
+# one warp per pixel, f32 FMA; corr_window: one thread per tap), on the
+# inputs of phases 3 and 3b: constants, not measured by this run; taken by
+# earlier versions of this script on an NVIDIA H100 80GB HBM3 at 700 W
+# (the first-design column of PERF.md §6): corr_level and corr_slab with
+# CUDA events; corr_window is the low end of its first design's runs,
+# 0.3870-0.3896 ms (CUDA events, then profiler device time).
 # Printed on a log line of their own beside this run's profiler times.
-FIRST_DESIGN_MS = {"corr_level": 0.7206, "corr_slab": 10.6588}
+FIRST_DESIGN_MS = {"corr_level": 0.7206, "corr_slab": 10.6588, "corr_window": 0.3870}
 
 BENCH_CONFIG = dict(
     image_size=(240, 320),
@@ -282,6 +286,48 @@ def split_cost(torch, f1, f2, coords, radius=3):
     )
 
 
+def window_sector_bytes(torch, coords, w2, radius=3, sector=32):
+    """What corr_window must move when device memory moves whole sectors
+    (32 bytes, or pairs of them with sector=64): the distinct sectors of the
+    f32 slab [N·P, 8, W2] that hold the in-map support columns of each
+    pixel's 8 rows (8 columns span at most two), the coords and the taps
+    written."""
+    n, p, _ = coords.shape
+    rows = 2 * radius + 2
+    x0 = torch.floor((coords[..., 0] - radius).clamp(-1e4, 1e4)).long().reshape(-1, 1)
+    lo, hi = x0.clamp(0, w2), (x0 + rows).clamp(0, w2)  # in-map columns [lo, hi)
+    row0 = (torch.arange(n * p, device=coords.device)[:, None] * rows
+            + torch.arange(rows, device=coords.device)) * w2  # [N·P, 8] first element of each row
+    ok = (hi > lo).expand(-1, rows)
+    first = ((row0 + lo) * 4 // sector)[ok]
+    last = (((row0 + hi) * 4 - 1) // sector)[ok]
+    sectors = torch.unique(torch.cat([first, last])).numel()
+    return sectors * sector + coords.numel() * 4 + n * p * (2 * radius + 1) ** 2 * 4
+
+
+def grid_sample_inputs(torch, slab, coords, radius=3):
+    """The input [N·P, 1, 8, W2] and grid [N·P, 7(i), 7(j), 2] of the one
+    F.grid_sample call (bilinear, zeros padding, align_corners=False) that
+    computes corr_window_ref(slab, coords): each pixel's slab is a
+    one-channel image, and tap (i, j) samples it at x = x0 + dx + i,
+    y = dy + j from the clipped origin, pixel x at (2x + 1) / W2 − 1 and row
+    y at (2y + 1) / 8 − 1. The output flattens to taps in (i, j) order."""
+    n, p, rows, w2 = slab.shape
+    c = coords.reshape(n * p, 2) - radius
+    o = torch.floor(c.clamp(-1e4, 1e4))
+    d = c - o
+    off = torch.arange(2 * radius + 1, device=slab.device, dtype=torch.float32)
+    x = (o[:, 0] + d[:, 0])[:, None, None] + off[None, :, None]  # [N·P, 7(i), 1]
+    y = d[:, 1][:, None, None] + off[None, None, :]  # [N·P, 1, 7(j)]
+    grid = torch.stack(torch.broadcast_tensors((2 * x + 1) / w2 - 1, (2 * y + 1) / rows - 1), -1)
+    return slab.reshape(n * p, 1, rows, w2), grid.contiguous()
+
+
+def grid_sample(torch, inp, grid):
+    return torch.nn.functional.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
+                                           align_corners=False)
+
+
 def bound(nbytes, ops, dtype):
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
@@ -294,7 +340,11 @@ def check_split_kernels(torch, corr, pops, dev, seed: int, N: int = 256, n_big: 
     coords in bf16 and f32 (timed, with corr_level on the same inputs: the
     fused-vs-split A/B), smooth (timed) and far-out coords in bf16, and the
     384x512 levels at N=32 (timed); every kernel runs twice per case and
-    must repeat bitwise."""
+    must repeat bitwise. Each timed case also times corr_window's library
+    yardstick, one F.grid_sample call on the same slab, and gives its error
+    against the plain version; counts the 32- and 64-byte sectors that
+    corr_window must read; and times one sum() over the slab, the rate at
+    which the card streams it."""
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     h, w, C = 30, 40, 128
     fmap1 = torch.randn((N, h, w, C), generator=g, device=dev)
@@ -343,9 +393,25 @@ def check_split_kernels(torch, corr, pops, dev, seed: int, N: int = 256, n_big: 
                 for name, (nbytes, ops) in split_cost(torch, f1, f2, c).items():
                     b_ms, b_by = bound(nbytes, ops, dtype if name == "corr_slab" else "float32")
                     case["kernels"][name] = dict(bytes=nbytes, ops=ops, bound_ms=b_ms, bound_by=b_by)
+                win = case["kernels"]["corr_window"]
+                win["sector_bytes"] = window_sector_bytes(torch, c, f2.shape[2])
+                win["sector_floor_ms"] = win["sector_bytes"] / MEM_BYTES_PER_S * 1e3
+                win["sector64_bytes"] = window_sector_bytes(torch, c, f2.shape[2], sector=64)
+                # the rate at which the card streams: one library reduction over the whole slab
+                case["slab_read_ms"] = device_ms(torch, lambda: slab_ref.sum(), reps=20)
+                # the library yardstick: one grid_sample call on the same slab
+                inp, grid = grid_sample_inputs(torch, slab_ref, c)
+                lib = grid_sample(torch, inp, grid).reshape(ref.shape)
+                case["grid_sample_err"] = float((lib - ref).abs().max())
+                case["library_ms"] = dict(corr_window=device_ms(torch, lambda: grid_sample(torch, inp, grid), reps=20))
+                del inp, grid, lib
                 split_bound = sum(k["bound_ms"] for k in case["kernels"].values())
                 msg += (f" slab {case['ms']['corr_slab']:.4f} + window {case['ms']['corr_window']:.4f} ms"
-                        f" (bound {split_bound:.4f} ms)")
+                        f" (bound {split_bound:.4f} ms; window bound {win['bound_ms']:.4f}, sector floor "
+                        f"{win['sector_floor_ms']:.4f}, 64-byte sectors {win['sector64_bytes'] / 1e6:.1f} MB in "
+                        f"{win['sector64_bytes'] / case['ms']['corr_window'] / 1e9:.2f} TB/s; slab read by sum() "
+                        f"{slab_ref.numel() * 4 / case['slab_read_ms'] / 1e9:.2f} TB/s); grid_sample "
+                        f"{case['library_ms']['corr_window']:.4f} ms, max_err {case['grid_sample_err']:.3e}")
                 if kind == "iid":
                     case["plain_ms"] = dict(
                         corr_slab=device_ms(torch, lambda: corr.corr_slab_ref(f1, f2, c), reps=3, warm=1),
@@ -617,7 +683,7 @@ def terminate_path(torch, np, kernels, droid, out_dir):
     profile_res = dict(
         profiled_wall_ms=wall * 1e3, device_ms=dev_ms,
         corr_slab_ms=kernel_ms(events, DeviceType, "corr_slab"),
-        corr_window_ms=kernel_ms(events, DeviceType, "corr_window_kernel"),
+        corr_window_ms=kernel_ms(events, DeviceType, "corr_window"),
         segment_sum_ms=seg_ms, segment_sum_calls=seg_calls,
         device_busy_share=dev_ms / (runs[-1]["wall_s"] * 1e3),
         top_kernels_ms={k[:60]: v / 1e3 for k, v in top},
@@ -734,7 +800,8 @@ def main(argv=None) -> int:
             plain_ms=sum(c["plain_ms"][name] for c in split_bf16),
             bound_ms=sum(c["kernels"][name]["bound_ms"] for c in split_bf16),
             bound_by="bytes" if k_bytes >= k_ops else "operations",
-            library_ms=None,
+            library_ms=(sum(c["library_ms"][name] for c in split_bf16)
+                        if name == "corr_window" else None),
         ))
         kernel_rows.append(row)
     if args.out is not None:
@@ -753,6 +820,13 @@ def main(argv=None) -> int:
     if not small["ok"]:
         failed.append("small replay")
     failed += [f"split pair {c['kind']} {c['dtype']} L{c['level']}" for c in split_cases if not c["ok"]]
+    failed += [f"grid_sample yardstick {c['kind']} {c['dtype']} L{c['level']}: max_err {c['grid_sample_err']:.3e}"
+               for c in split_cases
+               if c.get("grid_sample_err", 0.0) > KERNEL_TOL * c["max_abs_ref"]["corr_window"]]
+    window = next(r for r in kernel_rows if r["name"] == "corr_window")
+    if window["ms"] > window["library_ms"]:
+        failed.append(f"corr_window {window['ms']:.4f} ms is slower than grid_sample "
+                      f"{window['library_ms']:.4f} ms (iid, bf16, N=256, 4 levels)")
     failed += [f"segment_sum {c['name']}" for c in seg_cases if not c["ok"]]
     if not main_res["ok"]:
         failed.append("main path")
@@ -772,7 +846,7 @@ def main(argv=None) -> int:
     for row in kernel_rows:
         if row["name"] in FIRST_DESIGN_MS:
             log(f"{row['name']}: {row['ms']:.4f} ms in this run (profiler); first design "
-                f"{FIRST_DESIGN_MS[row['name']]} ms (a constant from earlier runs, CUDA events)")
+                f"{FIRST_DESIGN_MS[row['name']]} ms (a constant from earlier runs)")
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,7 @@
 // Replaces the TPU kernels of droid_slam_tpu/ops/pallas_corr.py reached
 // through `corr_level_pallas_split`:
 //   corr_slab_tile_kernel / corr_slab_kernel <- `_corr_slab_kernel` (stage A)
-//   corr_window_kernel                       <- `_corr_window_kernel` (stage B)
+//   corr_window_warp_kernel                  <- `_corr_window_kernel` (stage B)
 // Together they compute what ops/corr.py::corr_level_split_ref computes:
 // for each edge n and source pixel p, the (2r+1)^2 bilinear samples of the
 // correlation map <f1[n,p], f2[n,y,x]> around the pixel's target coordinates,
@@ -44,8 +44,50 @@
 // TF32, which would break the 1e-4 * max|plain| bound); the backend's lookup
 // at the bench configuration is bf16.
 //
-// Stage B (unchanged first design): one thread per output tap, reading its
-// four slab values.
+// What bounds stage B on the H100: bytes, at 32-byte sectors. Per level it
+// reads each pixel's 8x8 support from the slab and writes 49 f32 taps. At
+// the backend's chunk (N=256, P=1200, iid coords, 4 levels; the counts
+// chip_smoke.py phase 3b makes) the exact bytes (the in-map support
+// values, coords, taps) are 502 MB, a bound of 0.150 ms at 3.35 TB/s.
+// Device memory moves whole sectors: a support row's 8 columns at an
+// arbitrary x0 usually span two of them (level 0, W2=40: 133 MB of
+// sectors for 79 MB of values), and at levels 2 and 3 (W2 = 10, 5) the
+// rows are so short that the whole slab is read. With the taps and coords
+// that is 663 MB, a floor of 0.198 ms. Counted in 64-byte pairs of
+// sectors, it is 802 MB (0.239 ms); the times below follow that count, as
+// if device memory read whole pairs.
+//
+// The first design (one thread per tap, 4 scalar slab loads each) took
+// 0.387 ms per 4-level lookup: each of a pixel's 49 threads re-read its
+// coords and recomputed its origin, and its loads, one slab row apart
+// between neighbouring threads, fetched the pixel's 64 support values 196
+// times (~300 load instructions per pixel, through L1).
+//
+// This design (corr_window_warp_kernel): 8 lanes per pixel, 4 pixels per
+// warp, 8 warps per block.
+//   - Origins once: the warp's 8 coordinates (x, y of its 4 pixels, 32
+//     contiguous bytes) are loaded by lanes 0-7, one each, which take the
+//     floor and fraction with origin(), the expression of stage A; x0, dx
+//     and dy reach the pixel's lanes by shuffle.
+//   - One read of the support: lane c of a pixel loads column x0 + c of
+//     all 8 rows, so each of the warp's 8 load instructions reads 4 rows of
+//     32 contiguous bytes (1-2 sectors each). Columns outside [0, W2) are
+//     not read and count as 0. The 8 loads are independent, so a warp has
+//     them all in flight at once.
+//   - Blend from registers: lane c takes column x0 + c + 1 from lane c + 1
+//     (8 shuffles) and lanes 0-6 blend taps (i = c, j = 0..6) with the
+//     four-term expression of the first design, in its order.
+//   - Contiguous stores: the taps go to a per-warp shared stage in out's
+//     order, and the warp's 4 pixels (784 contiguous bytes of out) leave as
+//     49 16-byte stores; a block's 32 pixels are one range of out. Pixels
+//     are indexed over N*P flat in 64 bits; a warp past the end returns, the
+//     last one stores its whole pixels with scalar stores.
+//   - Latency: ~1-2 KB of sectors per warp in flight. `-Xptxas -v`: 32
+//     registers, 6272 bytes of shared memory, no spills, no block barrier,
+//     so 8 blocks of 256 threads fit on an SM: 64 warps, full occupancy.
+// It takes 0.280 ms per 4-level lookup on an H100 80GB HBM3 at 700 W,
+// moving those 64-byte pairs at 2.7-3.0 TB/s per level, about the rate at
+// which one sum() streams the slab (2.2-2.9 TB/s; PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -223,37 +265,72 @@ int launch_slab_f32(const void* f1, const void* f2, const void* coords, void* sl
 
 // ---- stage B ------------------------------------------------------------------
 
-__global__ void __launch_bounds__(256)
-corr_window_kernel(const float* __restrict__ slab,    // [N, P, kRows, W2]
-                   const float* __restrict__ coords,  // [N, P, 2]
-                   float* __restrict__ out,           // [N, P, kRd^2]
-                   long long n_taps, int W2) {
-  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n_taps) return;
-  const long long np = g / (kRd * kRd);
-  const int tap = (int)(g - np * (kRd * kRd));
-  const int i = tap / kRd;  // x-offset
-  const int j = tap - i * kRd;  // y-offset
+constexpr int kTaps = kRd * kRd;                   // 49 taps per pixel
+constexpr int kWinLanes = kRows;                   // lanes per pixel: one per support column
+constexpr int kWarpPix = 32 / kWinLanes;           // 4 pixels per warp
+constexpr int kWinWarps = 8;                       // warps per block
+constexpr int kWinPix = kWinWarps * kWarpPix;      // 32 pixels per block
+constexpr int kWarpTaps = kWarpPix * kTaps;        // 196: one warp's run of out
+constexpr unsigned kAll = 0xffffffffu;
+static_assert(kWarpTaps % 4 == 0, "a warp's run of out must be whole 16-byte stores");
 
-  const float cx = coords[2 * np + 0];
-  const float cy = coords[2 * np + 1];
-  const float x0f = origin(cx);
-  const float y0f = origin(cy);
-  const float dx = (cx - kR) - x0f;
-  const float dy = (cy - kR) - y0f;
-  const int x0 = (int)x0f;
+__global__ void __launch_bounds__(kWinWarps * 32)
+corr_window_warp_kernel(const float* __restrict__ slab,    // [NP, kRows, W2]
+                        const float* __restrict__ coords,  // [NP, 2]
+                        float* __restrict__ out,           // [NP, kTaps]
+                        long long n_pix, int W2) {
+  __shared__ __align__(16) float stage[kWinWarps][kWarpTaps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long p0 = ((long long)blockIdx.x * kWinWarps + warp) * kWarpPix;
+  if (p0 >= n_pix) return;  // warp-uniform: the kernel has no block barrier
+  const int nv = (int)min((long long)kWarpPix, n_pix - p0);  // the warp's pixels
+  const int q = lane / kWinLanes;  // the lane's pixel
+  const int c = lane % kWinLanes;  // its support column
 
-  const float* s = slab + np * kRows * W2;
-  const int xa = x0 + i;
-  const int xb = xa + 1;
-  const bool oka = xa >= 0 && xa < W2;
-  const bool okb = xb >= 0 && xb < W2;
-  const float v00 = oka ? s[j * W2 + xa] : 0.f;
-  const float v10 = okb ? s[j * W2 + xb] : 0.f;
-  const float v01 = oka ? s[(j + 1) * W2 + xa] : 0.f;
-  const float v11 = okb ? s[(j + 1) * W2 + xb] : 0.f;
-  out[g] = v00 * (1.f - dx) * (1.f - dy) + v10 * dx * (1.f - dy) +
-           v01 * (1.f - dx) * dy + v11 * dx * dy;
+  // origins, once per coordinate: lane k < 2 nv takes coords[p0 + k/2][k%2]
+  int o = 0;
+  float frac = 0.f;
+  if (lane < 2 * nv) {
+    const float v = coords[2 * p0 + lane];
+    const float of = origin(v);
+    o = (int)of;
+    frac = (v - kR) - of;
+  }
+  const int x0 = __shfl_sync(kAll, o, 2 * q);
+  const float dx = __shfl_sync(kAll, frac, 2 * q);
+  const float dy = __shfl_sync(kAll, frac, 2 * q + 1);
+
+  // the support, read once: column x0 + c of the pixel's 8 slab rows
+  const int x = x0 + c;
+  const bool in = q < nv && x >= 0 && x < W2;
+  const float* s = slab + (in ? (p0 + q) * kRows * W2 + x : 0);
+  float a[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) a[r] = in ? s[(size_t)r * W2] : 0.f;
+
+  // column x0 + c + 1 from lane c + 1; lanes c < 7 blend taps (i = c, j)
+  float b[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) b[r] = __shfl_down_sync(kAll, a[r], 1);
+  float* st = stage[warp];
+  if (c < kRd) {
+#pragma unroll
+    for (int j = 0; j < kRd; ++j)
+      st[q * kTaps + c * kRd + j] = a[j] * (1.f - dx) * (1.f - dy) + b[j] * dx * (1.f - dy) +
+                                    a[j + 1] * (1.f - dx) * dy + b[j + 1] * dx * dy;
+  }
+  __syncwarp();
+
+  // the warp's pixels are one contiguous run of out (16-byte aligned: the
+  // wrapper's out is, and p0 is a multiple of 4)
+  float* dst = out + p0 * kTaps;
+  if (nv == kWarpPix) {
+    const float4* src4 = reinterpret_cast<const float4*>(st);
+    float4* dst4 = reinterpret_cast<float4*>(dst);
+    for (int k = lane; k < kWarpTaps / 4; k += 32) dst4[k] = src4[k];
+  } else {
+    for (int k = lane; k < nv * kTaps; k += 32) dst[k] = st[k];
+  }
 }
 
 }  // namespace
@@ -291,16 +368,20 @@ extern "C" int corr_slab_launch(const void* f1, const void* f2, const void* coor
   }
 }
 
-// Stage B. slab is the f32 [N, P, 8, W2] output of stage A.
+// Stage B. slab is the f32 [N, P, 8, W2] output of stage A; out must be
+// 16-byte aligned. block_pixels is ops/corr.py::WINDOW_BLOCK_PIXELS, checked
+// against this file's layout.
 extern "C" int corr_window_launch(const void* slab, const void* coords, void* out, int N,
-                                  int P, int W2, int radius, void* stream) {
-  if (radius != corr_tile::kR || N <= 0 || P <= 0 || W2 <= 0) return (int)cudaErrorInvalidValue;
-  const long long n_taps = (long long)N * P * corr_tile::kRd * corr_tile::kRd;
-  const int threads = 256;
-  const long long blocks = (n_taps + threads - 1) / threads;
+                                  int P, int W2, int radius, int block_pixels, void* stream) {
+  if (radius != corr_tile::kR || block_pixels != kWinPix || N <= 0 || P <= 0 || W2 <= 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16)
+    return (int)cudaErrorInvalidValue;
+  const long long n_pix = (long long)N * P;
+  const long long blocks = (n_pix + kWinPix - 1) / kWinPix;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  corr_window_kernel<<<(unsigned)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  corr_window_warp_kernel<<<(unsigned)blocks, kWinWarps * 32, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(slab), static_cast<const float*>(coords),
-      static_cast<float*>(out), n_taps, W2);
+      static_cast<float*>(out), n_pix, W2);
   return (int)cudaGetLastError();
 }

@@ -360,6 +360,12 @@ def corr_slab(f1: Tensor, f2: Tensor, coords: Tensor, radius: int = 3) -> Tensor
     return slab
 
 
+# pixels per block of the corr_window kernel (csrc/corr_split.cu): 8 warps
+# of 4 pixels, 8 lanes per pixel, one per support column. The entry point
+# checks it against its own layout.
+WINDOW_BLOCK_PIXELS = 32
+
+
 def corr_window(slab: Tensor, coords: Tensor, radius: int = 3) -> Tensor:
     """Stage B: the contract of :func:`corr_window_ref`. A CUDA tensor goes
     to the ``corr_window`` kernel of ``csrc/corr_split.cu`` (f32 slab
@@ -383,7 +389,7 @@ def corr_window(slab: Tensor, coords: Tensor, radius: int = 3) -> Tensor:
     if w2 == 0:
         return out.zero_()
     kernels.launch("corr_window", slab.device, slab.data_ptr(), coords.data_ptr(), out.data_ptr(),
-            n, p, w2, radius)
+                   n, p, w2, radius, WINDOW_BLOCK_PIXELS)
     return out
 
 

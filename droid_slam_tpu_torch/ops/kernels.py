@@ -54,7 +54,7 @@ KERNELS = {
     "corr_window": (
         "corr_split.cu",
         "corr_window_launch",
-        [_VOIDP] * 3 + [_INT] * 4 + [_VOIDP],
+        [_VOIDP] * 3 + [_INT] * 5 + [_VOIDP],
     ),
 }
 
