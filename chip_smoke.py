@@ -46,7 +46,18 @@ Phases, each of which fails the run:
      went through the split pair, 4 levels x 19 global-BA steps x the
      update-operator chunks, and the two must repeat: the same backend edge
      counts and chunks, trajectories within 1e-6. Then one more terminate
-     under torch.profiler.
+     under torch.profiler;
+  7. the synthetic protocol with the shipped weights
+     (weights/droid_synth.msgpack, read by the port's own msgpack reader)
+     through droid_slam_tpu_torch/apps/evaluate.py's run_slam: rows 1-6 the
+     six monocular SEED_GATES of tests/test_accuracy.py (48 frames at
+     192x256, scale-corrected ATE), rows 7-8 RGB-D and stereo (24 frames at
+     96x128, unscaled ATE), each within its ATE bound, scale band and
+     keyframe range, with tracking and terminate walls and each kernel's
+     launches (each row must launch corr_level and the split pair); row 9
+     the cull replay of tests/test_engine_equivalence.py with the fixture
+     weights on the GPU and the CPU: the same keyframes after every frame,
+     at least one cull, poses within 5e-3.
 
 It prints a `kernels` JSON line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}. With ``--out DIR`` the details go
@@ -693,6 +704,117 @@ def terminate_path(torch, np, kernels, droid, out_dir):
                 ok=all(r["ok"] for r in runs) and repeat["ok"])
 
 
+WEIGHTS = ROOT / "weights" / "droid_synth.msgpack"
+FIXTURE_WEIGHTS = ROOT / "weights" / "equivalence_fixture.msgpack"
+# tests/test_accuracy.py::SEED_GATES (seed, compute dtype, bound on the
+# scale-corrected ATE) for 48 rendered frames at 192x256, with its keyframe
+# range [6, frames - 4] and fitted-scale band (0.25, 12)
+SEED_GATES = [
+    (7, "float32", 0.30),
+    (11, "float32", 0.60),
+    (23, "float32", 0.40),
+    (5, "float32", 0.45),
+    (42, "float32", 0.45),
+    (11, "bfloat16", 0.45),
+]
+MONO_FRAMES, MONO_SIZE, MONO_KEYFRAMES, MONO_SCALE = 48, (192, 256), (6, 44), (0.25, 12.0)
+# tests/test_accuracy.py:127-186: seed 7, 24 frames at 96x128, f32; bound on
+# the unscaled ATE and the fitted-scale band per metric mode, keyframes in
+# [6, frames - 2]
+METRIC_GATES = {"rgbd": (0.15, (0.8, 1.25)), "stereo": (0.25, (0.7, 1.4))}
+METRIC_FRAMES, METRIC_SIZE, METRIC_KEYFRAMES = 24, (96, 128), (6, 22)
+# tests/test_engine_equivalence.py:149-195: the cull replay with the
+# equivalence fixture's weights (wide decision margins)
+CULL_FRAMES = 26
+CULL_CONFIG = dict(
+    image_size=(96, 128),
+    buffer=32,
+    warmup=8,
+    max_factors=48,
+    inactive_pad=64,
+    window_pad=32,
+    schur_pair_floor=1024,
+    filter_thresh=-1.0,  # every frame appended: the culls are the decisions
+    keyframe_thresh=2.0,
+    frontend_window=16,
+    frontend_thresh=16.0,
+    compute_dtype="float32",
+)
+
+
+def synthetic_protocol(torch, np, kernels, evaluate, DroidConfig, render_sequence, Droid):
+    """Phase 7: the synthetic protocol with the shipped weights, through
+    apps/evaluate.py's run_slam, rows 1-6 monocular (SEED_GATES), rows 7-8
+    RGB-D and stereo; the launch counts are reset before each row and read
+    after it. Row 9: the cull replay on the GPU and on the CPU, with the
+    keyframe timestamps after every frame."""
+    rows = []
+    cases = [("mono", seed, dtype, bound) for seed, dtype, bound in SEED_GATES]
+    cases += [(mode, 7, "float32", gate[0]) for mode, gate in METRIC_GATES.items()]
+    for k, (mode, seed, dtype, bound) in enumerate(cases, 1):
+        mono = mode == "mono"
+        frames, size = (MONO_FRAMES, MONO_SIZE) if mono else (METRIC_FRAMES, METRIC_SIZE)
+        track, fill, ref = evaluate.synthetic_streams(seed, frames, size, stereo=mode == "stereo",
+                                                      rgbd=mode == "rgbd")
+        config = DroidConfig(image_size=size, buffer=96 if mono else 64, warmup=8,
+                             stereo=mode == "stereo", compute_dtype=dtype)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        traj, droid, walls = evaluate.run_slam(config, str(WEIGHTS), track, fill, device="cuda")
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        tstamps = np.arange(frames, dtype=np.float64)
+        scaled = evaluate.score(ref, tstamps, traj, correct_scale=True)
+        # mono is scored scale-corrected; the metric modes unscaled, with the
+        # fitted scale of the scale-corrected fit in its band
+        ate = scaled if mono else evaluate.score(ref, tstamps, traj, correct_scale=False)
+        kf_lo, kf_hi = MONO_KEYFRAMES if mono else METRIC_KEYFRAMES
+        s_lo, s_hi = MONO_SCALE if mono else METRIC_GATES[mode][1]
+        row = dict(row=k, mode=mode, seed=seed, dtype=dtype, frames=frames, image_size=list(size),
+                   ate=ate["ate_rmse"], ate_bound=bound, scale_corrected=mono, scale=scaled["scale"],
+                   scale_band=[s_lo, s_hi], keyframes=droid.counter, keyframe_range=[kf_lo, kf_hi],
+                   track_s=walls["track_s"], terminate_s=walls["terminate_s"], launches=launches,
+                   finite=bool(np.isfinite(traj).all()))
+        row["ok"] = bool(row["finite"] and ate["ate_rmse"] < bound and s_lo < scaled["scale"] < s_hi
+                         and kf_lo <= droid.counter <= kf_hi and launches["corr_level"] > 0
+                         and launches["corr_slab"] > 0 and launches["corr_window"] > 0)
+        log(f"  row {k} {mode:6s} seed {seed:2d} {dtype:8s}: ATE {row['ate']:.4f} "
+            f"({'scale-corrected' if mono else 'unscaled'}, bound {bound}), scale {row['scale']:.4f} "
+            f"(band {s_lo}-{s_hi}), keyframes {droid.counter}/{frames}, tracking {walls['track_s']:.2f} s, "
+            f"terminate {walls['terminate_s']:.2f} s, launches corr_level {launches['corr_level']} "
+            f"corr_slab {launches['corr_slab']} corr_window {launches['corr_window']}: "
+            f"{'ok' if row['ok'] else 'FAILED'}")
+        rows.append(row)
+        del droid
+
+    # row 9: the same cull decisions on the card and on the CPU
+    seq = render_sequence(np.random.default_rng(7), n_frames=CULL_FRAMES, image_size=CULL_CONFIG["image_size"],
+                          t_sigma=0.25, r_sigma=0.02)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        d = Droid(DroidConfig(**CULL_CONFIG), weights=str(FIXTURE_WEIGHTS), device=device)
+        hist = []
+        t0 = time.perf_counter()
+        for t in range(CULL_FRAMES):
+            d.track(t, seq["images"][t], intrinsics=seq["intrinsics"][t])
+            hist.append(d.tstamps.tolist())
+        runs[device] = dict(hist=hist, poses=d.poses.cpu().numpy(), wall_s=time.perf_counter() - t0)
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    flip = next((t for t in range(CULL_FRAMES) if gpu["hist"][t] != cpu["hist"][t]), None)
+    same = flip is None
+    cull = dict(
+        row=9, keyframes=len(gpu["hist"][-1]), keyframes_cpu=len(cpu["hist"][-1]),
+        tstamps=gpu["hist"][-1], same_keyframes=same,
+        # the first frame after which the devices hold different keyframes
+        first_flip=None if same else dict(frame=flip, gpu=gpu["hist"][flip], cpu=cpu["hist"][flip]),
+        pose_err=float(np.abs(gpu["poses"] - cpu["poses"]).max()) if same else None,
+        gpu_wall_s=gpu["wall_s"], cpu_wall_s=cpu["wall_s"],
+    )
+    cull["ok"] = bool(same and cull["keyframes"] < CULL_FRAMES and cull["pose_err"] < 5e-3)
+    log(f"  row 9 cull replay (fixture weights, {CULL_FRAMES} frames, 96x128): {cull}")
+    return dict(rows=rows, cull=cull)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
@@ -707,6 +829,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    from droid_slam_tpu_torch.apps import evaluate
+    from droid_slam_tpu_torch.data.synthetic import render_sequence
     from droid_slam_tpu_torch.models.droid_net import init_params
     from droid_slam_tpu_torch.ops import corr, kernels, segment
     from droid_slam_tpu_torch.ops import projective as pops
@@ -716,6 +840,9 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
     log("phase 1: TF32 off")
+    tf32_defaults = dict(matmul=torch.backends.cuda.matmul.allow_tf32, cudnn=torch.backends.cudnn.allow_tf32)
+    log(f"  PyTorch's defaults: matmul.allow_tf32={tf32_defaults['matmul']} "
+        f"cudnn.allow_tf32={tf32_defaults['cudnn']}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"  matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
@@ -756,6 +883,11 @@ def main(argv=None) -> int:
     log("phase 6: terminate path, Droid.terminate() at the bench configuration")
     term_res = terminate_path(torch, np, kernels, droid, args.out)
     del droid
+
+    log("phase 7: synthetic protocol with the shipped weights")
+    t0 = time.perf_counter()
+    proto = synthetic_protocol(torch, np, kernels, evaluate, DroidConfig, render_sequence, Droid)
+    proto["wall_s"] = time.perf_counter() - t0
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -807,9 +939,10 @@ def main(argv=None) -> int:
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(dict(
             device=torch.cuda.get_device_name(0), nvidia_smi=smi, torch=torch.__version__,
+            tf32_defaults=tf32_defaults,
             build_s=build_s, sass=sass, cases=cases, split_cases=split_cases, segment_cases=seg_cases,
             small_replay=small,
-            main_path=main_res, terminate_path=term_res, kernels=kernel_rows,
+            main_path=main_res, terminate_path=term_res, synthetic_protocol=proto, kernels=kernel_rows,
         ), indent=1))
 
     failed = [f"{f}: no tensor-core instructions" for f, k in tile_mma.items() if k == 0]
@@ -832,6 +965,10 @@ def main(argv=None) -> int:
         failed.append("main path")
     if not term_res["ok"]:
         failed.append("terminate path")
+    failed += [f"synthetic row {r['row']} {r['mode']} seed {r['seed']} {r['dtype']}"
+               for r in proto["rows"] if not r["ok"]]
+    if not proto["cull"]["ok"]:
+        failed.append(f"synthetic row 9 cull replay: {proto['cull']}")
     if failed:
         print("chip_smoke: FAILED: " + "; ".join(failed), file=sys.stderr)
         return 1
@@ -843,6 +980,9 @@ def main(argv=None) -> int:
     log(f"terminate path: {term_res['keyframes']} keyframes, wall {walls} s, "
         f"corr_slab/corr_window launches {first['corr_slab']}/{first['corr_window']}, "
         f"repeats: {term_res['repeat']}")
+    log(f"synthetic protocol: {len(proto['rows'])} rows and the cull replay passed in "
+        f"{proto['wall_s']:.1f} s; ATE " + ", ".join(f"{r['mode']} {r['seed']} {r['dtype']} {r['ate']:.4f}"
+                                                   for r in proto["rows"]))
     for row in kernel_rows:
         if row["name"] in FIRST_DESIGN_MS:
             log(f"{row['name']}: {row['ms']:.4f} ms in this run (profiler); first design "

@@ -2,11 +2,11 @@
 
 Counterpart of the JAX package's ``runtime/droid.py`` in its default fused
 engine: ``track()`` runs the motion filter and the frontend for one input
-frame on the tracking device; ``terminate()`` runs the global backend
-twice (7 then 12 steps) on a copy of the tracked state and returns the
-keyframe trajectory, or with a stream the trajectory of every frame. The
-host-driven engine, stereo and the sharded BA are later slices of the port
-(ROADMAP.md, queue 1).
+frame (monocular, RGB-D or a stereo pair) on the tracking device;
+``terminate()`` runs the global backend twice (7 then 12 steps) on a copy
+of the tracked state and returns the keyframe trajectory, or with a stream
+the trajectory of every frame. The host-driven engine and the sharded BA
+are later slices of the port (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..models.droid_net import DroidNet, init_params
+from ..models.weights import load_weights
 from ..ops import lie
 from . import fused
 from .backend import DroidBackend
@@ -45,22 +46,25 @@ class Droid:
     fill at the end.
 
     ``params`` is a state dict for :class:`DroidNet` (from
-    :func:`..models.weights.params_from_jax` or :func:`init_params`); it
-    defaults to ``init_params(0)``.
+    :func:`..models.weights.params_from_jax` or :func:`init_params`);
+    without it, ``weights`` names a weights file
+    (:func:`..models.weights.load_weights`: the JAX package's ``.msgpack``
+    or a reference ``.pth``); with neither, random ``init_params(0)``.
     """
 
     def __init__(
         self,
         config: DroidConfig,
         params: Optional[Dict[str, torch.Tensor]] = None,
+        weights: Optional[str] = None,
         device=None,
     ):
-        if config.stereo:
-            raise NotImplementedError("stereo tracking is a later slice of the port")
         self.config = config
         self.device = resolve_device(device)
+        if params is None:
+            params = load_weights(weights) if weights is not None else init_params(0)
         net = DroidNet()
-        net.load_state_dict(init_params(0) if params is None else params)
+        net.load_state_dict(params)
         self.net = net.to(self.device).eval()
         self._state = fused.init_state(config, self.device)
         self._track_step = fused.build_track_step(self.net, config)
@@ -75,11 +79,15 @@ class Droid:
 
     @torch.no_grad()
     def track(self, tstamp, image, depth=None, intrinsics=None) -> None:
-        """Track one frame: image [H, W, 3] (or [1, H, W, 3]) uint8 RGB,
-        intrinsics [4] at full resolution, optional depth [H, W]."""
+        """Track one frame: image [H, W, 3] (or [1, H, W, 3]) uint8 RGB, in
+        stereo the pair [2, H, W, 3] (left, right); intrinsics [4] at full
+        resolution, optional depth [H, W]."""
         img = torch.as_tensor(image, device=self.device)
         if img.dim() == 3:
             img = img[None]
+        rig = 2 if self.config.stereo else 1
+        if img.dim() != 4 or img.shape[0] != rig:
+            raise ValueError(f"expected {rig} image(s) [H, W, 3] per frame, got {tuple(img.shape)}")
         h, w = self.config.feat_size
         if depth is not None:
             sens = _depth_to_disp_sens(torch.as_tensor(depth, device=self.device), h, w)

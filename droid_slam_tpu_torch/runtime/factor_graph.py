@@ -15,8 +15,10 @@ the global backend and the trajectory filler run:
   with the split correlation lookup (:class:`..ops.corr.AltCorr`) over
   chunks of edges.
 
-Keyframe removal, neighbourhood edges and confidence filtering belong to
-the host-driven engine and are not ported yet.
+Both paths take a stereo rig (``config.stereo``): a self edge (i, i)
+matches keyframe i's left image against its right one. Keyframe removal,
+neighbourhood edges and confidence filtering belong to the host-driven
+engine and are not ported yet.
 """
 
 from __future__ import annotations
@@ -318,7 +320,9 @@ class FactorGraph:
         coords0 = pops.coords_grid(self.h, self.w, device=self.device)
         coords1, _ = pops.projective_transform(v.poses, v.disps, v.intrinsics, ii, jj)
         motn = torch.cat([coords1 - coords0, g.target - coords1], -1).clamp(-64.0, 64.0)
-        corr = corr_ops.CorrPyramid.build(v.fmaps[ii, 0], v.fmaps[jj, 0])(coords1)
+        # stereo self edges (i, i) match the left image against the right
+        rig2 = (ii == jj).long() if v.config.stereo else 0
+        corr = corr_ops.CorrPyramid.build(v.fmaps[ii, 0], v.fmaps[jj, rig2])(coords1)
 
         k_rel = (ii - kf0).clamp(0, agg_frames - 1)
         net, delta, weight, eta_win, upmask = self.update_op(
@@ -375,12 +379,17 @@ class FactorGraph:
         coords1, _ = pops.projective_transform(v.poses, v.disps, v.intrinsics, ii, jj)
         motn = torch.cat([coords1 - coords0, edges.target - coords1], -1).clamp(-64.0, 64.0)
 
-        # the correlation reads the compute-dtype keyframe features
-        alt = corr_ops.AltCorr.build(v.fmaps.reshape(B, self.h, self.w, 128).to(cdt))
+        # the correlation reads the compute-dtype keyframe features, with
+        # the rig flattened: keyframe k's image r is map rig·k + r, and a
+        # stereo self edge (i, i) reads the right image of i
+        rig = v.fmaps.shape[1]
+        alt = corr_ops.AltCorr.build(v.fmaps.reshape(B * rig, self.h, self.w, 128).to(cdt))
+        c1 = rig * ii
+        c2 = rig * jj + (ii == jj).long() if rig == 2 else jj
         nets, targets, weights = [], [], []
         for s in range(0, N, chunk):
             e = slice(s, s + chunk)
-            corr = alt(coords1[e], ii[e], jj[e])
+            corr = alt(coords1[e], c1[e], c2[e])
             net_c, delta, weight = self.update_op(edges.net[e], v.inps[ii[e]], corr, motn[e])
             nets.append(net_c)
             targets.append(coords1[e] + delta)

@@ -56,12 +56,12 @@ class SLAMState:
     disps: Tensor  # [B, h, w]
     disps_sens: Tensor  # [B, h, w]
     intrinsics: Tensor  # [B, 4] (1/8 res)
-    fmaps: Tensor  # [B, 1, h, w, 128] compute dtype
+    fmaps: Tensor  # [B, rig, h, w, 128] compute dtype (rig 2 in stereo)
     nets: Tensor  # [B, h, w, 128] compute dtype
     inps: Tensor  # [B, h, w, 128] compute dtype
     # f32 features of the last keyframe, for the motion-filter probe only:
     # keyframe decisions must not depend on the compute dtype
-    pfmap: Tensor  # [1, h, w, 128] f32
+    pfmap: Tensor  # [rig, h, w, 128] f32
     pnet: Tensor  # [h, w, 128] f32
     pinp: Tensor  # [h, w, 128] f32
     # factor graph (padded slots)
@@ -99,6 +99,7 @@ def init_state(config, device) -> SLAMState:
     B = config.buffer
     H, W = config.image_size
     h, w = config.feat_size
+    rig = 2 if config.stereo else 1
     Nmax = _edge_slots(config)
     K = config.inactive_pad
     cdt = getattr(torch, config.compute_dtype)
@@ -114,10 +115,10 @@ def init_state(config, device) -> SLAMState:
         disps=torch.ones((B, h, w), device=device),
         disps_sens=zeros(B, h, w),
         intrinsics=zeros(B, 4),
-        fmaps=zeros(B, 1, h, w, 128, dtype=cdt),
+        fmaps=zeros(B, rig, h, w, 128, dtype=cdt),
         nets=zeros(B, h, w, 128, dtype=cdt),
         inps=zeros(B, h, w, 128, dtype=cdt),
-        pfmap=zeros(1, h, w, 128),
+        pfmap=zeros(rig, h, w, 128),
         pnet=zeros(h, w, 128),
         pinp=zeros(h, w, 128),
         ii=zeros(Nmax, dtype=long),
@@ -272,12 +273,14 @@ def _proximity_candidates(
     thresh: float,
     beta: float,
     max_factors: int,
+    stereo: bool = False,
 ):
     """Distance-ranked greedy proximity edges with NMS, as masked tensors.
 
     Returns (cand_ii, cand_jj, cand_ok) of static length
-    rows·(rad+1)·2 + 2·n_greedy. Greedy picks stop when the running
-    directed-edge count (base + picks) would exceed ``max_factors``.
+    rows·(rad+1)·2 [+ rows in stereo] + 2·n_greedy. Greedy picks stop when
+    the running directed-edge count (base + picks) would exceed
+    ``max_factors``.
     """
     t = st.counter
     B = st.poses.shape[0]
@@ -303,17 +306,25 @@ def _proximity_candidates(
     ex_ball = ((ii_g[None] - ex_i[:, None]).abs() + (jj_g[None] - ex_j[:, None]).abs()) <= ex_r[:, None]
     d = torch.where((ex_ball & ex_ok[:, None]).any(0), inf, d)
 
-    # base edges: temporal neighbours (i, j), j ∈ [i−rad−1, i) ascending,
-    # both directions, with their cells suppressed
+    # base edges per source row: in stereo the self edge (i, i) first, then
+    # the temporal neighbours (i, j), j ∈ [i−rad−1, i) ascending, both
+    # directions, with their cells suppressed
     doff = torch.arange(rad + 1, 0, -1, device=dev)
     bi = i_abs[:, None].expand(rows, rad + 1)
     bj = bi - doff[None, :]
     bok = i_ok[:, None] & (bj >= 0)
-    base_ii = torch.stack([bi, bj], -1).reshape(-1)
-    base_jj = torch.stack([bj, bi], -1).reshape(-1)
-    base_ok = torch.stack([bok, bok], -1).reshape(-1)
+    base_ii = torch.stack([bi, bj], -1).reshape(rows, -1)
+    base_jj = torch.stack([bj, bi], -1).reshape(rows, -1)
+    base_ok = torch.stack([bok, bok], -1).reshape(rows, -1)
+    if stereo:
+        base_ii = torch.cat([i_abs[:, None], base_ii], 1)
+        base_jj = torch.cat([i_abs[:, None], base_jj], 1)
+        base_ok = torch.cat([i_ok[:, None], base_ok], 1)
+    base_ii, base_jj, base_ok = base_ii.reshape(-1), base_jj.reshape(-1), base_ok.reshape(-1)
     base_cell = (ii_g[None] == base_ii[:, None]) & (jj_g[None] == base_jj[:, None]) & base_ok[:, None]
     d = torch.where(base_cell.any(0), inf, d)
+    if stereo:
+        d = torch.where(ii_g == jj_g, inf, d)  # no greedy self edges
 
     # greedy selection, budget-gated like the host loop (base edges count)
     cnt = base_ok.sum()
@@ -357,6 +368,7 @@ def build_track_step(net, config):
     Ka = Pw + 8
     warmup = config.warmup
     beta = config.beta
+    stereo = config.stereo
 
     # ---------------- one operator iteration (factor_graph.py:199-251) -----
 
@@ -381,7 +393,9 @@ def build_track_step(net, config):
         coords1, _ = pops.projective_transform(st.poses, st.disps, st.intrinsics, ii, jj)
         motn = torch.cat([coords1 - coords0, st.target - coords1], -1).clamp(-64.0, 64.0)
 
-        corr = corr_ops.corr_lookup(st.fmaps[ii, 0], st.fmaps[jj, 0], coords1)
+        # stereo self edges (i, i) match the left image against the right
+        rig2 = (ii == jj).long() if stereo else 0
+        corr = corr_ops.corr_lookup(st.fmaps[ii, 0], st.fmaps[jj, rig2], coords1)
 
         k_rel = (ii - kf0).clamp(0, Ka - 1)
         net_e, delta, wgt, eta_win, upmask = update_op(
@@ -425,6 +439,7 @@ def build_track_step(net, config):
     # ------------------------------ track step -----------------------------
 
     def append_keyframe(st, tstamp, image, intrinsics, disp_sens, fmap32):
+        # the context and the stored image are the left image's
         net32, inp32 = net.context(image[:1])
         ix = st.counter
         st.tstamp[ix] = tstamp
@@ -445,7 +460,10 @@ def build_track_step(net, config):
         (droid_frontend.py:78-113)."""
         t1 = st.counter
         dev = st.poses.device
-        pairs = [(a, b) for a in range(warmup) for b in range(warmup) if 0 < abs(a - b) <= 3]
+        # in stereo the neighbourhood leaves out |a − b| = 1, as the JAX
+        # package's fused.py:642-645 does
+        c = 1 if stereo else 0
+        pairs = [(a, b) for a in range(warmup) for b in range(warmup) if c < abs(a - b) <= 3]
         cand = torch.tensor(pairs, dtype=torch.int64, device=dev)
         _add_edges(st, cand[:, 0], cand[:, 1], torch.ones(len(pairs), dtype=torch.bool, device=dev),
                    evict=False)
@@ -454,7 +472,7 @@ def build_track_step(net, config):
 
         ci, cj, cok = _proximity_candidates(
             st, 0, 0, warmup, warmup, rad=2, nms=2, thresh=config.frontend_thresh,
-            beta=beta, max_factors=Nmax,
+            beta=beta, stereo=stereo, max_factors=Nmax,
         )
         _add_edges(st, ci, cj, cok, evict=False)
         for _ in range(8):
@@ -478,7 +496,7 @@ def build_track_step(net, config):
         ci, cj, cok = _proximity_candidates(
             st, t1 - 5, max(t1 - config.frontend_window, 0), 5, config.frontend_window,
             rad=config.frontend_radius, nms=config.frontend_nms,
-            thresh=config.frontend_thresh, beta=beta, max_factors=Nmax,
+            thresh=config.frontend_thresh, beta=beta, stereo=stereo, max_factors=Nmax,
         )
         _add_edges(st, ci, cj, cok, evict=True, budget=Nmax)
 
@@ -509,12 +527,14 @@ def build_track_step(net, config):
     def track_step(
         st: SLAMState,
         tstamp: float,
-        image: Tensor,  # [1, H, W, 3] uint8
+        image: Tensor,  # [rig, H, W, 3] uint8 (left, right)
         intrinsics: Tensor,  # [4] full-res
         disp_sens: Tensor,  # [h, w] inverse-depth prior (zeros if none)
     ) -> None:
         # ---- motion filter (motion_filter.py:45-93), f32 ----
-        fmap32 = net.features(image)  # [1, h, w, 128]
+        # fnet over every rig image (all are stored); the probe compares the
+        # left images
+        fmap32 = net.features(image)  # [rig, h, w, 128]
         if st.counter > 0:
             coords0 = pops.coords_grid(h, w, device=fmap32.device)[None]
             corr = corr_ops.corr_lookup(st.pfmap[0][None], fmap32[0][None], coords0)

@@ -58,14 +58,16 @@ class PoseTrajectoryFiller:
         # matching features (f32 fnet) + temporary appends
         imgs = torch.as_tensor(np.stack([img[0] if img.ndim == 4 else img for img in images]),
                                device=dev)  # [M, H, W, 3], the monocular path
-        fmaps = self.net.features(imgs)[:, None]  # [M, 1, h, w, 128]
+        fmaps = self.net.features(imgs)  # [M, h, w, 128]
         h, w_ = self.config.feat_size
         intr = torch.as_tensor(np.stack(intrinsics), dtype=torch.float32, device=dev) / 8.0
         _set_range(v.tstamp, N, torch.as_tensor(tt, device=dev))
         _set_range(v.poses, N, Gs)
         _set_range(v.disps, N, torch.ones((M, h, w_), device=dev))
         _set_range(v.intrinsics, N, intr)
-        _set_range(v.fmaps, N, fmaps)
+        # the left image's slot only, as in the JAX package: the filler adds
+        # no self edges, so a stereo video's right slot is never read
+        _set_range(v.fmaps[:, 0], N, fmaps)
         v.counter = N + M
 
         graph = FactorGraph(

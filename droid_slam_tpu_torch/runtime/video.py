@@ -103,7 +103,8 @@ class VideoState:
     Buffers are plain tensors that the backend and the trajectory filler
     replace or update in place: tstamp [B], images [B, H, W, 3] uint8,
     poses [B, 7] world→camera (t, q_xyzw), disps / disps_sens [B, h, w],
-    intrinsics [B, 4] at 1/8 resolution, fmaps [B, 1, h, w, 128],
+    intrinsics [B, 4] at 1/8 resolution, fmaps [B, rig, h, w, 128] (rig 2
+    in stereo: left, right),
     nets / inps [B, h, w, 128], disps_up [B, H, W]. ``counter`` is the
     host-side keyframe count.
     """
@@ -125,7 +126,7 @@ class VideoState:
         self.disps_sens = zeros(B, h, w)
         self.disps_up = zeros(B, H, W)
         self.intrinsics = zeros(B, 4)
-        self.fmaps = zeros(B, 1, h, w, 128)
+        self.fmaps = zeros(B, 2 if config.stereo else 1, h, w, 128)
         self.nets = zeros(B, h, w, 128)
         self.inps = zeros(B, h, w, 128)
 
