@@ -6,20 +6,26 @@
 Phases, each of which fails the run:
   1. float32 matmuls and convolutions without TF32;
   2. build every hand-written CUDA kernel from droid_slam_tpu_torch/csrc,
-     and count the tensor-core instructions (HMMA/HGMMA) of each function
-     in the built libraries' SASS: each bf16 tile kernel must have some;
+     print each f32 function's registers, shared memory and spills, and
+     count the tensor-core instructions (HMMA/HGMMA) of each function in
+     the built libraries' SASS: each bf16 tile kernel must have some, and
+     the f32 functions (the band tiles and their sort) none: a TF32 route
+     would show there;
   3. hold corr_level against its plain PyTorch version at the tracking
-     path's shapes (48 edges, 30x40 features, C=128, all 4 pyramid levels):
-     iid-noise coords in bf16 and f32 (timed, with the plain version),
-     smooth-flow coords (timed) and far-out coords in bf16, the 384x512
-     levels (48x64 down to 6x8, timed), and the single-edge f32 probe;
+     path's shapes (48 edges, 30x40 features, C=128, all 4 pyramid levels)
+     in bf16 and f32: iid-noise coords (timed, with the plain version),
+     smooth-flow coords (timed), far-out coords, the 384x512 levels (48x64
+     down to 6x8, timed), and the single-edge f32 probe (timed, with the
+     plain version);
   3b. hold the split pair (corr_slab, corr_window) against its plain
      versions at the backend's shapes (one chunk of 256 edges, same
-     widths, all 4 levels): iid coords in bf16 and f32 (timed, with
+     widths, all 4 levels) in bf16 and f32: iid coords (timed, with
      corr_level's time on the same inputs beside them: the fused-vs-split
      A/B, and with one F.grid_sample call on the same slab, corr_window's
-     library yardstick, which it must not lose to at iid bf16), smooth and
-     far-out coords in bf16, and the 384x512 levels at 32 edges;
+     library yardstick, which it must not lose to at iid bf16), smooth
+     (timed) and far-out coords, and the 384x512 levels at 32 edges
+     (timed); each timed f32 case counts the band rows the f32 tiles
+     multiply against the rows the pixels need;
   3c. hold segment_sum, the order-fixed float scatter-add of the BA and
      GraphAgg (index_put_ with accumulate on the card), against index_add_
      (atomic adds on the card) at the tracking and terminate shapes: it must
@@ -38,7 +44,8 @@ Phases, each of which fails the run:
   5. drive the tracking path, Droid.track, at the bench configuration
      (240x320, buffer 64, 48 edge slots, every frame a keyframe, bfloat16
      compute): warmup+4 frames, then 30 timed frames; the kernel launch
-     counts of this phase show the path went through corr_level. Then 5
+     counts of this phase show the path went through corr_level, in bf16
+     (the operator's lookups) and in f32 (the motion probe). Then 5
      more frames under torch.profiler give device time per frame by kernel
      and that of the segment sums;
   6. drive the terminate path, Droid.terminate(), on phase 5's Droid (47
@@ -54,14 +61,17 @@ Phases, each of which fails the run:
      192x256, scale-corrected ATE), rows 7-8 RGB-D and stereo (24 frames at
      96x128, unscaled ATE), each within its ATE bound, scale band and
      keyframe range, with tracking and terminate walls and each kernel's
-     launches (each row must launch corr_level and the split pair); row 9
-     the cull replay of tests/test_engine_equivalence.py with the fixture
+     launches, by feature type (each row must launch corr_level and the
+     split pair); row 1's terminate once more under torch.profiler, device
+     activity only (device ms by kernel, busy share, the profile's cost);
+     row 9 the cull replay of tests/test_engine_equivalence.py with the fixture
      weights on the GPU and the CPU: the same keyframes after every frame,
      at least one cull, poses within 5e-3.
 
-It prints a `kernels` JSON line, the card's name and power limit, and as its
-last line {"ok": true, "device": {...}}. With ``--out DIR`` the details go
-to DIR/chip_smoke.json and the profile table to DIR/profile.txt.
+It prints a `kernels` JSON line (corr_level, corr_slab and corr_window in
+bf16, corr_level_f32 and corr_slab_f32), the card's name and power limit,
+and as its last line {"ok": true, "device": {...}}. With ``--out DIR`` the
+details go to DIR/chip_smoke.json and the profile tables to DIR/*.txt.
 
 Without a CUDA device, or without the droid_slam_tpu_torch package beside
 it, the script exits non-zero and prints no result.
@@ -88,15 +98,19 @@ KERNEL_TOL = 1e-4  # max |kernel − plain| relative to max |plain|
 SEGMENT_TOL = 1e-5
 SEGMENT_REPEATS = 5
 
-# ms per 4-level bf16 lookup of the first designs (corr_level, corr_slab:
-# one warp per pixel, f32 FMA; corr_window: one thread per tap), on the
-# inputs of phases 3 and 3b: constants, not measured by this run; taken by
-# earlier versions of this script on an NVIDIA H100 80GB HBM3 at 700 W
-# (the first-design column of PERF.md §6): corr_level and corr_slab with
-# CUDA events; corr_window is the low end of its first design's runs,
-# 0.3870-0.3896 ms (CUDA events, then profiler device time).
+# ms per 4-level lookup of the first designs (corr_level, corr_slab: one
+# warp per pixel, f32 FMA; corr_window: one thread per tap), on the inputs
+# of phases 3 and 3b: constants, not measured by this run; taken by earlier
+# versions of this script on an NVIDIA H100 80GB HBM3 at 700 W (the
+# first-design column of PERF.md §6). bf16 features: corr_level (N=48) and
+# corr_slab (N=256) with CUDA events; corr_window (N=256) the low end of its
+# first design's runs, 0.3870-0.3896 ms (CUDA events, then profiler device
+# time). float32 features, profiler device time, the low end of each range:
+# corr_level_f32 at N=48 edges, P=1200, C=128, iid coords (0.5711-0.6800
+# ms); corr_slab_f32 at N=256, same widths, iid (19.56-20.49 ms).
 # Printed on a log line of their own beside this run's profiler times.
-FIRST_DESIGN_MS = {"corr_level": 0.7206, "corr_slab": 10.6588, "corr_window": 0.3870}
+FIRST_DESIGN_MS = {"corr_level": 0.7206, "corr_slab": 10.6588, "corr_window": 0.3870,
+                   "corr_level_f32": 0.5711, "corr_slab_f32": 19.56}
 
 BENCH_CONFIG = dict(
     image_size=(240, 320),
@@ -130,6 +144,11 @@ SMALL_CONFIG = dict(
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def is_f32_function(name: str) -> bool:
+    """The f32 band tiles (corr_tile_f32.cuh) and their sort, by name."""
+    return "f32_kernel" in name or "corr_sort_kernel" in name
 
 
 def cuda_ms(torch, fn, reps: int, warm: int = 3) -> float:
@@ -221,21 +240,26 @@ def compare(torch, out, out2, ref):
 
 def check_kernels(torch, corr, pops, dev, seed: int, N: int = 48, n_big: int = 48):
     """Phase 3: corr_level against corr_level_ref: the tracking path's
-    shapes (N=48, 30x40, C=128, all 4 levels) with iid coords in bf16 and
-    f32 (timed, with the plain version), smooth coords (timed) and far-out
-    coords in bf16, the 384x512 levels (48x64 down to 6x8, timed) and the
-    single-edge f32 probe; every case runs twice and must repeat bitwise."""
+    shapes (N=48, 30x40, C=128, all 4 levels) in bf16 and f32 with iid
+    coords (timed, with the plain version), smooth coords (timed), far-out
+    coords and the 384x512 levels (48x64 down to 6x8, timed), and the
+    single-edge f32 probe (timed, with the plain version); every case runs
+    twice and must repeat bitwise."""
     g = torch.Generator(device=dev).manual_seed(seed)
     h, w, C = 30, 40, 128
     fmap1 = torch.randn((N, h, w, C), generator=g, device=dev)
     fmap2 = torch.randn((N, h, w, C), generator=g, device=dev)
+    # (the draws in the order of earlier versions of this script, so the
+    # bf16 cases see the same inputs; f32 reuses the smooth, far and 384x512 ones)
     inputs = [("iid", dt, fmap1, fmap2, make_coords(torch, pops, "iid", N, h, w, g, dev))
               for dt in ("bfloat16", "float32")]
-    inputs += [(kind, "bfloat16", fmap1, fmap2, make_coords(torch, pops, kind, N, h, w, g, dev))
-               for kind in ("smooth", "far")]
+    for kind in ("smooth", "far"):
+        c = make_coords(torch, pops, kind, N, h, w, g, dev)
+        inputs += [(kind, dt, fmap1, fmap2, c) for dt in ("bfloat16", "float32")]
     H, W = 48, 64
     big = [torch.randn((n_big, H, W, C), generator=g, device=dev) for _ in range(2)]
-    inputs.append(("iid_384x512", "bfloat16", *big, make_coords(torch, pops, "iid", n_big, H, W, g, dev)))
+    big_coords = make_coords(torch, pops, "iid", n_big, H, W, g, dev)
+    inputs += [("iid_384x512", dt, *big, big_coords) for dt in ("bfloat16", "float32")]
     # the motion-filter probe: one edge, f32 features, identity coords
     probe = [torch.randn((1, h, w, C), generator=g, device=dev) for _ in range(2)]
     inputs.append(("probe", "float32", *probe, pops.coords_grid(h, w, device=dev)[None]))
@@ -255,7 +279,7 @@ def check_kernels(torch, corr, pops, dev, seed: int, N: int = 48, n_big: int = 4
             msg = (f"  corr_level {kind:11s} {dtype:8s} L{lvl} [{f1.shape[0]},{f1.shape[1]},{C}]x"
                    f"[{f2.shape[1]}x{f2.shape[2]}]: max_err {err:.3e} (tol {KERNEL_TOL * scale:.3e}) "
                    f"repeat {'bitwise' if bitwise else 'DIFFERS'}")
-            if kind != "far" and kind != "probe":
+            if kind != "far":
                 case["ms"] = device_ms(torch, lambda: corr.corr_level(f1, f2, c), reps=50)
                 case["event_ms"] = cuda_ms(torch, lambda: corr.corr_level(f1, f2, c), reps=50)
                 nbytes, ops = corr_level_cost(torch, f1, f2, c)
@@ -263,7 +287,7 @@ def check_kernels(torch, corr, pops, dev, seed: int, N: int = 48, n_big: int = 4
                 case["bound_ms"], case["bound_by"] = bound(nbytes, ops, dtype)
                 msg += (f" kernel {case['ms']:.4f} ms (events {case['event_ms']:.4f}) "
                         f"bound {case['bound_ms']:.4f} ms")
-                if kind == "iid":
+                if kind in ("iid", "probe"):
                     case["plain_ms"] = device_ms(torch, lambda: corr.corr_level_ref(f1, f2, c), reps=5, warm=1)
                     msg += f" plain {case['plain_ms']:.4f} ms"
             cases.append(case)
@@ -295,6 +319,32 @@ def split_cost(torch, f1, f2, coords, radius=3):
         corr_slab=(slab_bytes, 2 * c * rows_in * w2),
         corr_window=(window_bytes, 12 * n * p * taps),
     )
+
+
+def f32_band_rows(torch, coords, h2, w2, tp, radius=3):
+    """(computed, needed) pixel-rows of the f32 tile kernels for one level:
+    per edge the pixels sorted as corr_sort_kernel sorts them (bin: window
+    row, then column), tiles of tp consecutive sorted pixels, warps of 16;
+    a warp multiplies a band row for all 16 of its pixels when one of them
+    needs it (computed counts 16 per such warp-row), against the in-map
+    window rows of every pixel (needed)."""
+    n, p, _ = coords.shape
+    rows = 2 * radius + 2
+    x0 = torch.floor((coords[..., 0] - radius).clamp(-1e4, 1e4)).long()
+    y0 = torch.floor((coords[..., 1] - radius).clamp(-1e4, 1e4)).long()
+    ky = torch.where((y0 + rows - 1 >= 0) & (y0 < h2), y0 + rows - 1, h2 + rows - 1)
+    kx = (x0 + rows - 1).clamp(0, w2 + rows - 1)
+    order = torch.sort(ky * (w2 + rows) + kx, dim=1, stable=True).indices
+    tiles = -(-p // tp)
+    y0s = torch.full((n, tiles * tp), -(1 << 20), dtype=torch.long, device=coords.device)
+    y0s[:, :p] = torch.gather(y0, 1, order)
+    y0s = y0s.reshape(n, tiles, tp // 16, 16, 1)
+    yy = torch.arange(h2, device=coords.device)
+    need = (yy >= y0s) & (yy < y0s + rows)  # [n, tiles, warps, 16, H2]
+    computed = 16 * int(need.any(-2).sum())
+    in_map = y0[..., None] + torch.arange(rows, device=coords.device)
+    needed = int(((in_map >= 0) & (in_map < h2)).sum())
+    return computed, needed
 
 
 def window_sector_bytes(torch, coords, w2, radius=3, sector=32):
@@ -347,11 +397,13 @@ def bound(nbytes, ops, dtype):
 
 def check_split_kernels(torch, corr, pops, dev, seed: int, N: int = 256, n_big: int = 32):
     """Phase 3b: corr_slab + corr_window against their plain versions at the
-    backend's chunk shapes (N=256, 30x40, C=128, all 4 levels) with iid
-    coords in bf16 and f32 (timed, with corr_level on the same inputs: the
-    fused-vs-split A/B), smooth (timed) and far-out coords in bf16, and the
-    384x512 levels at N=32 (timed); every kernel runs twice per case and
-    must repeat bitwise. Each timed case also times corr_window's library
+    backend's chunk shapes (N=256, 30x40, C=128, all 4 levels) in bf16 and
+    f32 with iid coords (timed, with corr_level on the same inputs: the
+    fused-vs-split A/B), smooth (timed) and far-out coords, and the 384x512
+    levels at N=32 (timed); every kernel runs twice per case and must
+    repeat bitwise. Each timed f32 case counts the band rows the f32 tiles
+    multiply against the rows its pixels need (f32_band_rows). Each timed
+    case also times corr_window's library
     yardstick, one F.grid_sample call on the same slab, and gives its error
     against the plain version; counts the 32- and 64-byte sectors that
     corr_window must read; and times one sum() over the slab, the rate at
@@ -360,13 +412,17 @@ def check_split_kernels(torch, corr, pops, dev, seed: int, N: int = 256, n_big: 
     h, w, C = 30, 40, 128
     fmap1 = torch.randn((N, h, w, C), generator=g, device=dev)
     fmap2 = torch.randn((N, h, w, C), generator=g, device=dev)
+    # (the draws in the order of earlier versions of this script, so the
+    # bf16 cases see the same inputs; f32 reuses the smooth, far and 384x512 ones)
     inputs = [("iid", dt, fmap1, fmap2, make_coords(torch, pops, "iid", N, h, w, g, dev))
               for dt in ("bfloat16", "float32")]
-    inputs += [(kind, "bfloat16", fmap1, fmap2, make_coords(torch, pops, kind, N, h, w, g, dev))
-               for kind in ("smooth", "far")]
+    for kind in ("smooth", "far"):
+        c = make_coords(torch, pops, kind, N, h, w, g, dev)
+        inputs += [(kind, dt, fmap1, fmap2, c) for dt in ("bfloat16", "float32")]
     H, W = 48, 64
     big = [torch.randn((n_big, H, W, C), generator=g, device=dev) for _ in range(2)]
-    inputs.append(("iid_384x512", "bfloat16", *big, make_coords(torch, pops, "iid", n_big, H, W, g, dev)))
+    big_coords = make_coords(torch, pops, "iid", n_big, H, W, g, dev)
+    inputs += [("iid_384x512", dt, *big, big_coords) for dt in ("bfloat16", "float32")]
     cases = []
     for kind, dtype, m1, m2, coords in inputs:
         dt = getattr(torch, dtype)
@@ -416,6 +472,11 @@ def check_split_kernels(torch, corr, pops, dev, seed: int, N: int = 256, n_big: 
                 case["grid_sample_err"] = float((lib - ref).abs().max())
                 case["library_ms"] = dict(corr_window=device_ms(torch, lambda: grid_sample(torch, inp, grid), reps=20))
                 del inp, grid, lib
+                if dtype == "float32":
+                    tp = corr.corr_tile_plan_f32("corr_slab", f1.shape[0], f1.shape[1], f2.shape[2], C).tp
+                    computed, needed = f32_band_rows(torch, c, f2.shape[1], f2.shape[2], tp)
+                    case["band_rows"] = dict(computed=computed, needed=needed, tile=tp)
+                    msg += f" band rows computed {computed} needed {needed} ({computed / needed:.3f}x);"
                 split_bound = sum(k["bound_ms"] for k in case["kernels"].values())
                 msg += (f" slab {case['ms']['corr_slab']:.4f} + window {case['ms']['corr_window']:.4f} ms"
                         f" (bound {split_bound:.4f} ms; window bound {win['bound_ms']:.4f}, sector floor "
@@ -572,22 +633,28 @@ def main_path(torch, np, kernels, Droid, DroidConfig, init_params, seed: int, ou
     droid.sync()
     elapsed = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    dtype_launches = dict(kernels.DTYPE_LAUNCHES)
 
     poses, disps = droid.poses, droid.disps
     h, w = cfg.feat_size
     res = dict(
         frames=t, keyframes=droid.counter, fps=n_timed / elapsed, timed_s=elapsed,
-        warmup_s=warm_s, launches=launches, n_edges=len(droid.edges),
+        warmup_s=warm_s, launches=launches, dtype_launches=dtype_launches, n_edges=len(droid.edges),
         n_inactive=len(droid.inactive_edges),
         # probe on frames 1..warmup-1, 16 init iterations, then per frame
         # 1 probe + 4 + 2 iterations; 4 levels each
         expected_corr_launches=4 * ((cfg.warmup - 1) + 16 + 7 * (t - cfg.warmup)),
+        # the probe, in f32 whatever the compute type, on every frame after the first
+        expected_f32_launches=4 * (t - 1),
         finite=bool(torch.isfinite(poses).all() and torch.isfinite(disps).all()),
         shapes_ok=tuple(poses.shape) == (droid.counter, 7) and tuple(disps.shape) == (droid.counter, h, w),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
     )
     res["ok"] = bool(res["finite"] and res["shapes_ok"] and droid.counter == t
-                     and launches["corr_level"] == res["expected_corr_launches"])
+                     and launches["corr_level"] == res["expected_corr_launches"]
+                     and dtype_launches.get("corr_level_f32") == res["expected_f32_launches"]
+                     and dtype_launches.get("corr_level_bf16") == (res["expected_corr_launches"]
+                                                                   - res["expected_f32_launches"]))
     log(f"  {res}")
 
     # device time by kernel over 5 more frames (after the counts were read)
@@ -654,6 +721,7 @@ def terminate_path(torch, np, kernels, droid, out_dir):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
+        launches.update(kernels.DTYPE_LAUNCHES)
         steps_x_chunks = sum(steps * chunks for steps, (_, chunks) in zip((7, 12), droid.backend_runs))
         run = dict(
             wall_s=wall, launches=launches, backend_runs=droid.backend_runs,
@@ -742,48 +810,114 @@ CULL_CONFIG = dict(
 )
 
 
-def synthetic_protocol(torch, np, kernels, evaluate, DroidConfig, render_sequence, Droid):
+def protocol_rows():
+    """Phase 7's rows 1-8: (mode, seed, compute dtype, ATE bound)."""
+    cases = [("mono", seed, dtype, bound) for seed, dtype, bound in SEED_GATES]
+    return cases + [(mode, 7, "float32", gate[0]) for mode, gate in METRIC_GATES.items()]
+
+
+def protocol_row(torch, np, kernels, evaluate, DroidConfig, k: int):
+    """Phase 7's row k (1-8) through run_slam, with the launch counts reset
+    before it and read after it. Returns (the row's result, the Droid, the
+    fill stream)."""
+    mode, seed, dtype, bound = protocol_rows()[k - 1]
+    mono = mode == "mono"
+    frames, size = (MONO_FRAMES, MONO_SIZE) if mono else (METRIC_FRAMES, METRIC_SIZE)
+    track, fill, ref = evaluate.synthetic_streams(seed, frames, size, stereo=mode == "stereo",
+                                                  rgbd=mode == "rgbd")
+    config = DroidConfig(image_size=size, buffer=96 if mono else 64, warmup=8,
+                         stereo=mode == "stereo", compute_dtype=dtype)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    traj, droid, walls = evaluate.run_slam(config, str(WEIGHTS), track, fill, device="cuda")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    dtype_launches = dict(kernels.DTYPE_LAUNCHES)  # by feature type
+    tstamps = np.arange(frames, dtype=np.float64)
+    scaled = evaluate.score(ref, tstamps, traj, correct_scale=True)
+    # mono is scored scale-corrected; the metric modes unscaled, with the
+    # fitted scale of the scale-corrected fit in its band
+    ate = scaled if mono else evaluate.score(ref, tstamps, traj, correct_scale=False)
+    kf_lo, kf_hi = MONO_KEYFRAMES if mono else METRIC_KEYFRAMES
+    s_lo, s_hi = MONO_SCALE if mono else METRIC_GATES[mode][1]
+    row = dict(row=k, mode=mode, seed=seed, dtype=dtype, frames=frames, image_size=list(size),
+               ate=ate["ate_rmse"], ate_bound=bound, scale_corrected=mono, scale=scaled["scale"],
+               scale_band=[s_lo, s_hi], keyframes=droid.counter, keyframe_range=[kf_lo, kf_hi],
+               track_s=walls["track_s"], terminate_s=walls["terminate_s"], launches=launches,
+               dtype_launches=dtype_launches, finite=bool(np.isfinite(traj).all()))
+    row["ok"] = bool(row["finite"] and ate["ate_rmse"] < bound and s_lo < scaled["scale"] < s_hi
+                     and kf_lo <= droid.counter <= kf_hi and launches["corr_level"] > 0
+                     and launches["corr_slab"] > 0 and launches["corr_window"] > 0)
+    by_type = " ".join(f"{name} {n}" for name, n in sorted(dtype_launches.items()))
+    log(f"  row {k} {mode:6s} seed {seed:2d} {dtype:8s}: ATE {row['ate']:.4f} "
+        f"({'scale-corrected' if mono else 'unscaled'}, bound {bound}), scale {row['scale']:.4f} "
+        f"(band {s_lo}-{s_hi}), keyframes {droid.counter}/{frames}, tracking {walls['track_s']:.2f} s, "
+        f"terminate {walls['terminate_s']:.2f} s, launches corr_level {launches['corr_level']} "
+        f"corr_slab {launches['corr_slab']} corr_window {launches['corr_window']} ({by_type}): "
+        f"{'ok' if row['ok'] else 'FAILED'}")
+    return row, droid, fill
+
+
+def profile_terminate(torch, droid, fill, wall_s: float, out_dir, name: str):
+    """One more terminate(fill) of a phase 7 row's Droid under
+    torch.profiler, recording device activity only: device ms and launches
+    by kernel, summed from the profiler's raw events (an f32 terminate with
+    TF32 off launches ~3e5 kernels, and building the profiler's own event
+    tree for them, with host ops beside, takes over a minute), and the busy
+    share of the profiled run. cost_s is what the profile adds to phase 7:
+    the profiled terminate and the reading of its events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        droid.terminate(iter(fill))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    us, calls = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        # kernels, copies and sets (the profiler's own overhead is a host event)
+        if e.device_type() == DeviceType.CUDA:
+            key = e.name()
+            us[key] = us.get(key, 0.0) + e.duration_ns() / 1e3
+            calls[key] = calls.get(key, 0) + 1
+    if not us:
+        raise RuntimeError("torch.profiler recorded no device time")
+    ranked = sorted(us, key=lambda k: -us[k])
+    if out_dir is not None:
+        lines = [f"{'device ms':>12}  {'calls':>8}  kernel"]
+        lines += [f"{us[k] / 1e3:12.3f}  {calls[k]:8d}  {k}" for k in ranked[:40]]
+        (out_dir / f"{name}.txt").write_text("\n".join(lines) + "\n")
+    dev_ms = sum(us.values()) / 1e3
+
+    def ms(needle):
+        return sum(v for k, v in us.items() if needle in k) / 1e3
+
+    return dict(
+        profiled_wall_ms=wall * 1e3, device_ms=dev_ms, device_busy_share=dev_ms / (wall * 1e3),
+        row_terminate_wall_ms=wall_s * 1e3, launches=sum(calls.values()),
+        corr_slab_ms=ms("corr_slab"), corr_window_ms=ms("corr_window"), corr_sort_ms=ms("corr_sort"),
+        top_kernels_ms={k[:60]: us[k] / 1e3 for k in ranked[:12]},
+        cost_s=time.perf_counter() - t_start,
+    )
+
+
+def synthetic_protocol(torch, np, kernels, evaluate, DroidConfig, render_sequence, Droid, out_dir):
     """Phase 7: the synthetic protocol with the shipped weights, through
     apps/evaluate.py's run_slam, rows 1-6 monocular (SEED_GATES), rows 7-8
     RGB-D and stereo; the launch counts are reset before each row and read
-    after it. Row 9: the cull replay on the GPU and on the CPU, with the
-    keyframe timestamps after every frame."""
+    after it; row 1's terminate runs once more under torch.profiler. Row 9:
+    the cull replay on the GPU and on the CPU, with the keyframe timestamps
+    after every frame."""
     rows = []
-    cases = [("mono", seed, dtype, bound) for seed, dtype, bound in SEED_GATES]
-    cases += [(mode, 7, "float32", gate[0]) for mode, gate in METRIC_GATES.items()]
-    for k, (mode, seed, dtype, bound) in enumerate(cases, 1):
-        mono = mode == "mono"
-        frames, size = (MONO_FRAMES, MONO_SIZE) if mono else (METRIC_FRAMES, METRIC_SIZE)
-        track, fill, ref = evaluate.synthetic_streams(seed, frames, size, stereo=mode == "stereo",
-                                                      rgbd=mode == "rgbd")
-        config = DroidConfig(image_size=size, buffer=96 if mono else 64, warmup=8,
-                             stereo=mode == "stereo", compute_dtype=dtype)
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        traj, droid, walls = evaluate.run_slam(config, str(WEIGHTS), track, fill, device="cuda")
-        torch.cuda.synchronize()
-        launches = dict(kernels.LAUNCHES)
-        tstamps = np.arange(frames, dtype=np.float64)
-        scaled = evaluate.score(ref, tstamps, traj, correct_scale=True)
-        # mono is scored scale-corrected; the metric modes unscaled, with the
-        # fitted scale of the scale-corrected fit in its band
-        ate = scaled if mono else evaluate.score(ref, tstamps, traj, correct_scale=False)
-        kf_lo, kf_hi = MONO_KEYFRAMES if mono else METRIC_KEYFRAMES
-        s_lo, s_hi = MONO_SCALE if mono else METRIC_GATES[mode][1]
-        row = dict(row=k, mode=mode, seed=seed, dtype=dtype, frames=frames, image_size=list(size),
-                   ate=ate["ate_rmse"], ate_bound=bound, scale_corrected=mono, scale=scaled["scale"],
-                   scale_band=[s_lo, s_hi], keyframes=droid.counter, keyframe_range=[kf_lo, kf_hi],
-                   track_s=walls["track_s"], terminate_s=walls["terminate_s"], launches=launches,
-                   finite=bool(np.isfinite(traj).all()))
-        row["ok"] = bool(row["finite"] and ate["ate_rmse"] < bound and s_lo < scaled["scale"] < s_hi
-                         and kf_lo <= droid.counter <= kf_hi and launches["corr_level"] > 0
-                         and launches["corr_slab"] > 0 and launches["corr_window"] > 0)
-        log(f"  row {k} {mode:6s} seed {seed:2d} {dtype:8s}: ATE {row['ate']:.4f} "
-            f"({'scale-corrected' if mono else 'unscaled'}, bound {bound}), scale {row['scale']:.4f} "
-            f"(band {s_lo}-{s_hi}), keyframes {droid.counter}/{frames}, tracking {walls['track_s']:.2f} s, "
-            f"terminate {walls['terminate_s']:.2f} s, launches corr_level {launches['corr_level']} "
-            f"corr_slab {launches['corr_slab']} corr_window {launches['corr_window']}: "
-            f"{'ok' if row['ok'] else 'FAILED'}")
+    for k in range(1, len(protocol_rows()) + 1):
+        row, droid, fill = protocol_row(torch, np, kernels, evaluate, DroidConfig, k)
+        if k == 1:
+            row["terminate_profile"] = profile_terminate(torch, droid, fill, row["terminate_s"], out_dir,
+                                                         "profile_row1_terminate")
+            log(f"  row 1 terminate profile: {row['terminate_profile']}")
         rows.append(row)
         del droid
 
@@ -853,15 +987,22 @@ def main(argv=None) -> int:
     build_logs = kernels.build()
     build_s = time.perf_counter() - t0
     for name, text in build_logs.items():
+        func = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line or "Function properties for" in line:
+                func = line.split()[-1].strip("'")
+            elif "registers" in line or "spill" in line or "smem" in line:
+                # the f32 functions by name (the bf16 ones as before, by line)
+                tag = f" {func}" if is_f32_function(func) else ""
+                log(f"  {name}:{tag} {line.strip()}")
     log(f"  built {sorted(build_logs) or 'nothing (cached)'} in {build_s:.1f} s")
     sass = kernels.sass_counts()
     for func, counts in sorted(sass.items()):
         log(f"  sass {func}: " + ", ".join(f"{op} {k}" for op, k in counts.items()))
-    # the bf16 instantiations must run on the tensor cores
+    # the bf16 instantiations must run on the tensor cores, the f32 ones
+    # (and their sort) on the CUDA cores only
     tile_mma = {f: sum(c.values()) for f, c in sass.items() if "tile_kernel" in f}
+    f32_mma = {f: sum(c.values()) for f, c in sass.items() if is_f32_function(f)}
 
     log("phase 3: kernels vs plain versions at main-path shapes")
     cases = check_kernels(torch, corr, pops, dev, args.seed)
@@ -886,7 +1027,7 @@ def main(argv=None) -> int:
 
     log("phase 7: synthetic protocol with the shipped weights")
     t0 = time.perf_counter()
-    proto = synthetic_protocol(torch, np, kernels, evaluate, DroidConfig, render_sequence, Droid)
+    proto = synthetic_protocol(torch, np, kernels, evaluate, DroidConfig, render_sequence, Droid, args.out)
     proto["wall_s"] = time.perf_counter() - t0
 
     smi = subprocess.run(
@@ -936,6 +1077,37 @@ def main(argv=None) -> int:
                         if name == "corr_window" else None),
         ))
         kernel_rows.append(row)
+    # the f32 tiles: corr_level at N=48 and corr_slab at N=256, iid, 4
+    # levels, with phase 7 row 1's f32 launches (an f32 row of the protocol)
+    row1 = proto["rows"][0]
+    f32_level = [c for c in cases if c["dtype"] == "float32" and c["kind"] == "iid"]
+    f32_split = [c for c in split_cases if c["dtype"] == "float32" and c["kind"] == "iid"]
+    f32_sets = (
+        ("corr_level_f32", "corr_level.cu", 80, f32_level, lambda c: c["bytes"], lambda c: c["ops"],
+         lambda c: c["ms"], lambda c: c["plain_ms"], lambda c: c["bound_ms"],
+         max(c["max_abs_err"] for c in cases if c["dtype"] == "float32")),
+        ("corr_slab_f32", "corr_split.cu", 170, f32_split,
+         lambda c: c["kernels"]["corr_slab"]["bytes"], lambda c: c["kernels"]["corr_slab"]["ops"],
+         lambda c: c["ms"]["corr_slab"], lambda c: c["plain_ms"]["corr_slab"],
+         lambda c: c["kernels"]["corr_slab"]["bound_ms"],
+         max(c["max_abs_err"]["corr_slab"] for c in split_cases if c["dtype"] == "float32")),
+    )
+    for name, source, line, sel, nbytes, ops, ms, plain, bnd, err in f32_sets:
+        k_bytes = sum(nbytes(c) / MEM_BYTES_PER_S for c in sel)
+        k_ops = sum(ops(c) / PEAK_OPS_PER_S["float32"] for c in sel)
+        kernel_rows.append(share(dict(
+            name=name,
+            route="cuda",
+            source=f"droid_slam_tpu_torch/csrc/{source}",
+            replaces=f"droid_slam_tpu/ops/pallas_corr.py:{line}",
+            launches=row1["dtype_launches"].get(name, 0),
+            max_abs_err=err,
+            ms=sum(ms(c) for c in sel),
+            plain_ms=sum(plain(c) for c in sel),
+            bound_ms=sum(bnd(c) for c in sel),
+            bound_by="bytes" if k_bytes >= k_ops else "operations",
+            library_ms=None,
+        )))
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(dict(
             device=torch.cuda.get_device_name(0), nvidia_smi=smi, torch=torch.__version__,
@@ -949,6 +1121,11 @@ def main(argv=None) -> int:
     # 2 kernels x C in (32, 64, 128, 256) x 1, 2, 4 or 8 n8 tiles per chunk
     if len(tile_mma) != 32:
         failed.append(f"expected 32 bf16 tile instantiations in the SASS, found {len(tile_mma)}")
+    failed += [f"{f}: {k} tensor-core instructions in an f32 function" for f, k in f32_mma.items() if k]
+    # 2 kernels x C in (32, 64, 128, 256), and the sort (one name in both libraries)
+    n_f32 = sum("f32_kernel" in f for f in f32_mma)
+    if n_f32 != 8 or len(f32_mma) != 9:
+        failed.append(f"expected 8 f32 tile instantiations and the sort in the SASS, found {sorted(f32_mma)}")
     failed += [f"corr_level {c['kind']} {c['dtype']} L{c['level']} N={c['N']}" for c in cases if not c["ok"]]
     if not small["ok"]:
         failed.append("small replay")
@@ -960,6 +1137,14 @@ def main(argv=None) -> int:
     if window["ms"] > window["library_ms"]:
         failed.append(f"corr_window {window['ms']:.4f} ms is slower than grid_sample "
                       f"{window['library_ms']:.4f} ms (iid, bf16, N=256, 4 levels)")
+    for name in ("corr_level_f32", "corr_slab_f32"):
+        row = next(r for r in kernel_rows if r["name"] == name)
+        if row["launches"] == 0:
+            failed.append(f"{name}: no launch in phase 7 row 1")
+    slab32 = next(r for r in kernel_rows if r["name"] == "corr_slab_f32")
+    if slab32["ms"] > slab32["plain_ms"]:
+        failed.append(f"corr_slab_f32 {slab32['ms']:.4f} ms is slower than its plain version "
+                      f"{slab32['plain_ms']:.4f} ms (iid, N=256, 4 levels)")
     failed += [f"segment_sum {c['name']}" for c in seg_cases if not c["ok"]]
     if not main_res["ok"]:
         failed.append("main path")
@@ -987,6 +1172,8 @@ def main(argv=None) -> int:
         if row["name"] in FIRST_DESIGN_MS:
             log(f"{row['name']}: {row['ms']:.4f} ms in this run (profiler); first design "
                 f"{FIRST_DESIGN_MS[row['name']]} ms (a constant from earlier runs)")
+    log(f"f32 launches of phase 7 row 1 (mono seed 7, f32): {row1['dtype_launches']}; "
+        f"phase 5 (bf16 tracking, f32 probe): {main_res['dtype_launches']}")
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernels of droid_slam_tpu/ops/pallas_corr.py reached
 // through `corr_level_pallas_split`:
-//   corr_slab_tile_kernel / corr_slab_kernel <- `_corr_slab_kernel` (stage A)
+//   corr_slab_tile_kernel / corr_slab_f32_kernel <- `_corr_slab_kernel` (stage A)
 //   corr_window_warp_kernel                  <- `_corr_window_kernel` (stage B)
 // Together they compute what ops/corr.py::corr_level_split_ref computes:
 // for each edge n and source pixel p, the (2r+1)^2 bilinear samples of the
@@ -40,9 +40,25 @@
 // (each quad of lanes writes 32 contiguous bytes); the rows of its window
 // outside the map are written as zeros, once.
 //
-// float32 features keep the first design (the tensor cores' f32 input is
-// TF32, which would break the 1e-4 * max|plain| bound); the backend's lookup
-// at the bench configuration is bf16.
+// float32 features (corr_slab_f32_kernel, corr_tile_f32.cuh): every f32
+// terminate. The tensor cores' f32 input is TF32, which would break the
+// 1e-4 * max|plain| bound, so the dots run on the CUDA cores in f32 FMA,
+// and what bounds stage A is then operations: at the backend's chunk
+// (N=256, iid, 4 levels) the in-map slab dots are 38.8 GFLOP, 0.64 ms at
+// 67 TFLOP/s, against 1.58 GB of bytes (0.47 ms). The f32 first design (the
+// bf16 first design's layout) took 19.56-20.49 ms, 3% of that bound and
+// 3.3x slower than the plain version. This design: each edge's pixels
+// sorted by window row (one counting-sort launch), so that the warps of a
+// tile of 64 consecutive sorted pixels need the same band rows (1.003-1.05x
+// the rows the pixels need, against most of the map for a tile of
+// consecutive source pixels under iid coords); f1 staged once per block,
+// each f2 row of the band once through three cp.async buffers; a 4-pixel x
+// up to 8-column register tile per thread over ascending channels; the
+// off-map rows written as zeros once. It takes 1.937-1.954 ms per 4-level
+// lookup on an NVIDIA H100 80GB HBM3 at 700 W (0.33 of its bound; the
+// first design 19.91-19.95 ms in the same runs), against 5.23-5.31 ms for
+// the plain version: the FMA loop runs at ~40% of the f32 peak at levels
+// 0-1, and levels 2-3 pay the per-block latency.
 //
 // What bounds stage B on the H100: bytes, at 32-byte sectors. Per level it
 // reads each pixel's 8x8 support from the slab and writes 49 f32 taps. At
@@ -93,6 +109,7 @@
 #include <cuda_runtime.h>
 
 #include "corr_tile.cuh"
+#include "corr_tile_f32.cuh"
 
 namespace {
 
@@ -196,70 +213,95 @@ int dispatch_tiles(const void* f1, const void* f2, const void* coords, void* sla
   }
 }
 
-// ---- stage A, f32: the first design -----------------------------------------
-
-constexpr int kF32Warps = 8;
+// ---- stage A, f32: CUDA-core band tiles (corr_tile_f32.cuh) ---------------
 
 template <int C>
-__global__ void __launch_bounds__(kF32Warps * 32)
-corr_slab_kernel(const float* __restrict__ f1,      // [N, P, C]
-                 const float* __restrict__ f2,      // [N, H2, W2, C]
-                 const float* __restrict__ coords,  // [N, P, 2]
-                 float* __restrict__ slab,          // [N, P, kRows, W2]
-                 int P, int H2, int W2) {
-  __shared__ __align__(16) float f1s[kF32Warps][C];
+__global__ void __launch_bounds__(corr_tile_f32::kMaxThreads)
+corr_slab_f32_kernel(const float* __restrict__ f1,      // [N, P, C]
+                     const float* __restrict__ f2,      // [N, H2, W2, C]
+                     const float* __restrict__ coords,  // [N, P, 2]
+                     const int* __restrict__ perm,      // [N, P]: corr_sort_kernel's order
+                     float* __restrict__ slab,          // [N, P, kRows, W2]
+                     int P, int H2, int W2, int w2pad, int tp) {
+  using namespace corr_tile_f32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* f1s = reinterpret_cast<float*>(smem);  // [tp][C + 4], by tile position
+  float* ring = f1s + tp * row_floats(C);       // [kStages][w2pad][C + 4]
+  __shared__ int sy0[kMaxTP], spix[kMaxTP], sred[kRed];
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n = blockIdx.y;
-  const int p = blockIdx.x * kF32Warps + warp;
-  if (p >= P) return;  // ragged pixel tile: the whole warp leaves
+  const int p0 = blockIdx.x * tp;
+  const int* pn = perm + (size_t)n * P;
 
-  const size_t np = (size_t)n * P + p;
-  const int y0 = (int)origin(coords[2 * np + 1]);
+  zero_pad_columns_f32<C>(ring, W2, w2pad);
+  tile_pixels(pn, P, p0, tp, spix);
+  __syncthreads();
+  stage_f1<C>(f1 + (size_t)n * P * C, P, p0, tp, spix, f1s);  // in flight during tile_band
+  cp_async_commit();
+  const int2 band = tile_band_tp(tp, coords + (size_t)n * P * 2, P, p0, H2, sy0, nullptr,
+                                 nullptr, nullptr, sred, pn);
 
-  const float* f1p = f1 + np * C;
-  for (int k = lane; k < C; k += 32) f1s[warp][k] = f1p[k];
-  __syncwarp();
-
-  const float* f2n = f2 + (size_t)n * H2 * W2 * C;
-  const float* a = f1s[warp];
-  float* out = slab + np * kRows * W2;
-  const int total = kRows * W2;
-  for (int q = lane; q < total; q += 32) {
-    const int r = q / W2;
-    const int x = q - r * W2;
-    const int y = y0 + r;
-    float acc = 0.f;
-    if (y >= 0 && y < H2) {
-      const float* row = f2n + ((size_t)y * W2 + x) * C;
-#pragma unroll 4
-      for (int c = 0; c < C; c += 8) {
-        const float4 b0 = *reinterpret_cast<const float4*>(row + c);
-        const float4 b1 = *reinterpret_cast<const float4*>(row + c + 4);
-        const float4 a0 = *reinterpret_cast<const float4*>(a + c);
-        const float4 a1 = *reinterpret_cast<const float4*>(a + c + 4);
-        acc = fmaf(a0.x, b0.x, acc);
-        acc = fmaf(a0.y, b0.y, acc);
-        acc = fmaf(a0.z, b0.z, acc);
-        acc = fmaf(a0.w, b0.w, acc);
-        acc = fmaf(a1.x, b1.x, acc);
-        acc = fmaf(a1.y, b1.y, acc);
-        acc = fmaf(a1.z, b1.z, acc);
-        acc = fmaf(a1.w, b1.w, acc);
-      }
-    }
-    out[q] = acc;
+  // the window rows outside the map, zeros, once (as the bf16 kernel)
+  const int nvalid = min(tp, P - p0);
+  float* sl = slab + (size_t)n * P * kRows * W2;
+  for (int i = warp; i < nvalid; i += blockDim.x / 32) {
+    const int top = min(max(-sy0[i], 0), kRows);
+    const int bottom = max(min(H2 - sy0[i], kRows), top);
+    float* dst = sl + (size_t)spix[i] * kRows * W2;
+    for (int q = lane; q < top * W2; q += 32) dst[q] = 0.f;
+    for (int q = bottom * W2 + lane; q < kRows * W2; q += 32) dst[q] = 0.f;
   }
+
+  // the thread's 4 pixels: tile positions pix + 4k
+  const int pix = warp * kPixW + (lane >> 3);
+  int px[kPixT], y0[kPixT];
+#pragma unroll
+  for (int k = 0; k < kPixT; ++k) {
+    px[k] = spix[pix + 4 * k];
+    y0[k] = sy0[pix + 4 * k];
+  }
+  band_loop_f32<C>(
+      f2 + (size_t)n * H2 * W2 * C, W2, w2pad, ring, band, f1s,
+      [&](int y) {  // every column of a row one of the warp's pixels needs
+        bool need = false;
+#pragma unroll
+        for (int k = 0; k < kPixT; ++k) need |= (unsigned)(y - y0[k]) < (unsigned)kRows;
+        return __any_sync(kFull, need) ? make_int2(0, w2pad) : make_int2(0, 0);
+      },
+      [&](int y, int col, const auto& acc) {
+        constexpr int NJ = pass_cols<decltype(acc)>();
+#pragma unroll
+        for (int k = 0; k < kPixT; ++k) {
+          const int r = y - y0[k];
+          if ((unsigned)r >= (unsigned)kRows) continue;
+          float* dst = sl + ((size_t)px[k] * kRows + r) * W2;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+            if (col + 8 * j < W2) dst[col + 8 * j] = acc[k][j];
+        }
+      });
 }
 
 template <int C>
-int launch_slab_f32(const void* f1, const void* f2, const void* coords, void* slab, int N, int P,
-                    int H2, int W2, cudaStream_t stream) {
-  const dim3 grid((P + kF32Warps - 1) / kF32Warps, N);
-  corr_slab_kernel<C><<<grid, kF32Warps * 32, 0, stream>>>(
+int launch_slab_f32(const void* f1, const void* f2, const void* coords, void* perm, void* slab,
+                    int N, int P, int H2, int W2, int tp, int w2pad, int row_stride, int n_tiles,
+                    int smem_bytes, cudaStream_t stream) {
+  using namespace corr_tile_f32;
+  if (!valid_tp(tp) || w2pad != w2_padded(W2) || row_stride != 4 * row_floats(C) ||
+      n_tiles != first_pass_cols(w2pad) || smem_bytes != smem_bytes_f32(tp, w2pad, C, false))
+    return (int)cudaErrorInvalidValue;
+  if (perm == nullptr) return (int)cudaErrorInvalidValue;
+  int err = launch_sort(coords, static_cast<int*>(perm), N, P, H2, W2, stream);
+  if (err != 0) return err;
+  err = (int)cudaFuncSetAttribute(corr_slab_f32_kernel<C>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != 0) return err;
+  const dim3 grid((P + tp - 1) / tp, N);
+  corr_slab_f32_kernel<C><<<grid, tp / kPixW * 32, smem_bytes, stream>>>(
       static_cast<const float*>(f1), static_cast<const float*>(f2),
-      static_cast<const float*>(coords), static_cast<float*>(slab), P, H2, W2);
+      static_cast<const float*>(coords), static_cast<const int*>(perm), static_cast<float*>(slab),
+      P, H2, W2, w2pad, tp);
   return (int)cudaGetLastError();
 }
 
@@ -339,11 +381,12 @@ corr_window_warp_kernel(const float* __restrict__ slab,    // [NP, kRows, W2]
 // code of its launch.
 
 // Stage A. is_bf16 selects the element type of f1/f2 (else float32). tp,
-// w2pad, row_stride, n_tiles and smem_bytes are the bf16 tile plan of
-// ops/corr.py::corr_tile_plan, checked here against this file's layout;
-// float32 takes the first design and ignores them.
-extern "C" int corr_slab_launch(const void* f1, const void* f2, const void* coords, void* slab,
-                                int N, int P, int H2, int W2, int C, int radius, int is_bf16,
+// w2pad, row_stride, n_tiles and smem_bytes are the tile plan of
+// ops/corr.py::corr_tile_plan (bf16) or corr_tile_plan_f32 (float32),
+// checked here against this file's layout. perm is an int32 [N, P] scratch
+// for float32's sort (bf16 ignores it).
+extern "C" int corr_slab_launch(const void* f1, const void* f2, const void* coords, void* perm,
+                                void* slab, int N, int P, int H2, int W2, int C, int radius, int is_bf16,
                                 int tp, int w2pad, int row_stride, int n_tiles, int smem_bytes,
                                 void* stream) {
   if (radius != corr_tile::kR || N <= 0 || N > 65535 || P <= 0 || H2 <= 0 || W2 <= 0)
@@ -360,10 +403,10 @@ extern "C" int corr_slab_launch(const void* f1, const void* f2, const void* coor
     }
   }
   switch (C) {
-    case 32: return launch_slab_f32<32>(f1, f2, coords, slab, N, P, H2, W2, st);
-    case 64: return launch_slab_f32<64>(f1, f2, coords, slab, N, P, H2, W2, st);
-    case 128: return launch_slab_f32<128>(f1, f2, coords, slab, N, P, H2, W2, st);
-    case 256: return launch_slab_f32<256>(f1, f2, coords, slab, N, P, H2, W2, st);
+    case 32: return launch_slab_f32<32>(f1, f2, coords, perm, slab, N, P, H2, W2, tp, w2pad, row_stride, n_tiles, smem_bytes, st);
+    case 64: return launch_slab_f32<64>(f1, f2, coords, perm, slab, N, P, H2, W2, tp, w2pad, row_stride, n_tiles, smem_bytes, st);
+    case 128: return launch_slab_f32<128>(f1, f2, coords, perm, slab, N, P, H2, W2, tp, w2pad, row_stride, n_tiles, smem_bytes, st);
+    case 256: return launch_slab_f32<256>(f1, f2, coords, perm, slab, N, P, H2, W2, tp, w2pad, row_stride, n_tiles, smem_bytes, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -131,17 +131,27 @@ __device__ __forceinline__ void row_mma(const unsigned char* buf, int row_stride
   }
 }
 
-// Window origins of the block's pixels and the band they need. Threads
-// [0, kTP) take one pixel each; sy0 (and sx0/sdx/sdy when given) receive
-// the origins, kNoRow for pixels past P; sred holds kRed ints. Returns
-// [lo, hi] (lo > hi: empty). Ends with __syncthreads.
+// Window origins of the block's TP pixels (kTP for the bf16 kernels; 16, 32
+// or 64 for the f32 ones, corr_tile_f32.cuh) and the band they need. Threads
+// [0, TP) take one tile position each (a TP below 32 fills its warp with
+// lanes that add no rows): position q = p0 + tid is pixel perm[q] of the
+// edge when perm is given, else pixel q. sy0 (and sx0/sdx/sdy when given)
+// receive the origins by position, kNoRow past P; sred holds kRed ints.
+// Returns [lo, hi] (lo > hi: empty). Ends with __syncthreads.
+template <int TP = kTP>
 __device__ __forceinline__ int2 tile_band(const float* coords, int P, int p0, int H2, int* sy0,
-                                          int* sx0, float* sdx, float* sdy, int* sred) {
+                                          int* sx0, float* sdx, float* sdy, int* sred,
+                                          const int* perm = nullptr) {
+  static_assert(TP % 16 == 0 && TP <= kTP, "16, 32 or 64 pixels per tile");
+  constexpr int kLanes = TP < 32 ? 32 : TP;  // whole warps take part in the reductions
   const int tid = threadIdx.x;
-  if (tid < kTP) {
-    const int p = p0 + tid;
+  if (tid < kLanes) {
+    const int q = p0 + tid;
     int lo = 1 << 30, hi = -1;
-    if (p < P) {
+    if (tid >= TP) {
+      // a lane past the tile: no pixel
+    } else if (q < P) {
+      const int p = perm != nullptr ? perm[q] : q;
       const float cx = coords[2 * (size_t)p + 0] - kR;
       const float cy = coords[2 * (size_t)p + 1] - kR;
       const float y0f = floorf(fminf(fmaxf(cy, -1e4f), 1e4f));
@@ -170,7 +180,7 @@ __device__ __forceinline__ int2 tile_band(const float* coords, int P, int p0, in
   __syncthreads();
   int2 band = make_int2(sred[0], sred[1]);
 #pragma unroll
-  for (int w = 1; w < kTP / 32; ++w) {
+  for (int w = 1; w < kLanes / 32; ++w) {
     band.x = min(band.x, sred[2 * w]);
     band.y = max(band.y, sred[2 * w + 1]);
   }

@@ -26,12 +26,14 @@ launches its kernel on a CUDA tensor; there is no fallback between the two.
 For bf16 features ``corr_level`` and ``corr_slab`` run tensor-core tiles of
 64 source pixels against the f2 rows of the tile's window band, staged in
 shared memory (``csrc/corr_tile.cuh``); :func:`corr_tile_plan` lays the
-tile out.
+tile out. For f32 features they run the same band tiles with the dots in
+f32 FMA on the CUDA cores (``csrc/corr_tile_f32.cuh``), laid out by
+:func:`corr_tile_plan_f32`.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -214,6 +216,47 @@ def corr_tile_plan(kernel: str, n: int, p: int, w2: int, c: int) -> TilePlan:
     return TilePlan(TILE_PIXELS, w2pad, row_stride, n_tiles, smem, (-(-p // TILE_PIXELS), n))
 
 
+# -----------------------------------------------------------------------------
+# the tile plan of the float32 kernels (csrc/corr_tile_f32.cuh)
+# -----------------------------------------------------------------------------
+
+F32_TILE_PIXELS = (64, 32, 16)  # source pixels per block: 16 per warp (4 per thread)
+F32_ROW_PAD_FLOATS = 4  # per staged f1/f2 row: C + 4 floats, an odd number of 16-byte units
+SM_COUNT = 132  # streaming multiprocessors of the H100 SXM
+# per kernel: static shared bytes (window origins, the tile's pixels, the
+# band reduction's scratch; corr_level adds x0 and the fractions) and
+# whether the tile's 8×8 f32 supports sit beside the row buffers
+_F32_SMEM = {
+    "corr_level": (5 * 64 * 4 + _RED, True),
+    "corr_slab": (2 * 64 * 4 + _RED, False),
+}
+
+
+def corr_tile_plan_f32(kernel: str, n: int, p: int, w2: int, c: int) -> TilePlan:
+    """The tile plan of the float32 ``kernel`` ("corr_level" or
+    "corr_slab") for N edges, P source pixels, a map W2 wide and C channels:
+    64 source pixels per block, or 32 or 16 when N·⌈P/tp⌉ blocks would leave
+    SMs of the H100 without one (the motion probe runs one edge), and smaller
+    still when the block's shared memory would not fit otherwise.
+    ``n_tiles`` is the columns per thread of a row's first pass (a pass
+    covers up to 64 columns). Raises ValueError when even 16 pixels need more
+    than the 227 KB of shared memory Hopper gives a block: at C=128 a map
+    wider than 136, at C=256 wider than 64 (no path of the repo)."""
+    static, supports = _F32_SMEM[kernel]
+    w2pad = -(-w2 // 8) * 8
+    row_stride = 4 * (c + F32_ROW_PAD_FLOATS)
+    busy = [tp for tp in F32_TILE_PIXELS if n * -(-p // tp) >= SM_COUNT]
+    first = F32_TILE_PIXELS.index(busy[0]) if busy else len(F32_TILE_PIXELS) - 1
+    for tp in F32_TILE_PIXELS[first:]:
+        smem = (tp + STAGES * w2pad) * row_stride + (tp * 64 * 4 if supports else 0)
+        if static + smem <= SMEM_LIMIT:
+            return TilePlan(tp, w2pad, row_stride, min(8, w2pad // 8), smem, (-(-p // tp), n))
+    raise ValueError(
+        f"{kernel}: a float32 tile of a map {w2} wide at C={c} needs {static + smem} bytes of "
+        f"shared memory even at 16 pixels, above the {SMEM_LIMIT} (227 KB) a block can use"
+    )
+
+
 def _check_cuda(name: str, *tensors: Tensor) -> None:
     dev = tensors[0].device
     if dev.type != "cuda":
@@ -247,16 +290,31 @@ def _check_lookup(name: str, f1: Tensor, f2: Tensor, coords: Tensor, radius: int
 
 
 def _plan_args(name: str, f1: Tensor, f2: Tensor) -> Tuple[int, int, int, int, int]:
-    """The tile plan passed to a lookup kernel's entry point (bf16), or
-    zeros (f32, which runs the first design); raises on 16-byte misalignment
-    of the feature maps (16-byte copies) or on a plan that does not fit."""
+    """The tile plan passed to a lookup kernel's entry point (bf16 or f32);
+    raises on 16-byte misalignment of the feature maps (16-byte copies) or
+    on a plan that does not fit."""
     if f1.data_ptr() % 16 or f2.data_ptr() % 16:
         raise ValueError(f"{name}: f1 and f2 must start on a 16-byte boundary (16-byte loads)")
-    if f1.dtype != torch.bfloat16:
-        return 0, 0, 0, 0, 0
     n, p, c = f1.shape
-    plan = corr_tile_plan(name, n, p, f2.shape[2], c)
+    plan_of = corr_tile_plan if f1.dtype == torch.bfloat16 else corr_tile_plan_f32
+    plan = plan_of(name, n, p, f2.shape[2], c)
     return plan.tp, plan.w2pad, plan.row_stride, plan.n_tiles, plan.smem_bytes
+
+
+def _dtype_tag(t: Tensor) -> str:
+    return "bf16" if t.dtype == torch.bfloat16 else "f32"
+
+
+def _sort_scratch(f1: Tensor) -> Optional[Tensor]:
+    """The int32 [N, P] scratch of the f32 kernels' per-edge sort (None for
+    bf16, passed as a null pointer)."""
+    if f1.dtype == torch.bfloat16:
+        return None
+    return torch.empty(f1.shape[:2], dtype=torch.int32, device=f1.device)
+
+
+def _ptr(t: Optional[Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def corr_level(f1: Tensor, f2: Tensor, coords: Tensor, radius: int = 3) -> Tensor:
@@ -265,8 +323,8 @@ def corr_level(f1: Tensor, f2: Tensor, coords: Tensor, radius: int = 3) -> Tenso
     Same contract as :func:`corr_level_ref`. A CUDA tensor goes to the
     kernel of ``csrc/corr_level.cu`` (bf16 or f32 features, f32 coords, all
     contiguous, feature maps 16-byte aligned, C ∈ {32, 64, 128, 256},
-    radius 3, a bf16 tile plan within 227 KB); anything it does not take
-    raises. A CPU tensor goes to the plain version.
+    radius 3, a tile plan within 227 KB); anything it does not take raises.
+    A CPU tensor goes to the plain version.
     """
     if f1.device.type == "cpu":
         return corr_level_ref(f1, f2, coords, radius)
@@ -278,9 +336,11 @@ def corr_level(f1: Tensor, f2: Tensor, coords: Tensor, radius: int = 3) -> Tenso
     if n == 0 or p == 0 or h2 == 0 or w2 == 0:
         return out.zero_()
     plan = _plan_args("corr_level", f1, f2)
+    perm = _sort_scratch(f1)  # alive until the launch is queued
     kernels.launch(
-        "corr_level", f1.device, f1.data_ptr(), f2.data_ptr(), coords.data_ptr(), out.data_ptr(),
-        n, p, h2, w2, c, radius, int(f1.dtype == torch.bfloat16), *plan,
+        "corr_level", f1.device, f1.data_ptr(), f2.data_ptr(), coords.data_ptr(), _ptr(perm),
+        out.data_ptr(), n, p, h2, w2, c, radius, int(f1.dtype == torch.bfloat16), *plan,
+        dtype=_dtype_tag(f1),
     )
     return out
 
@@ -353,9 +413,11 @@ def corr_slab(f1: Tensor, f2: Tensor, coords: Tensor, radius: int = 3) -> Tensor
     if h2 == 0:
         return slab.zero_()
     plan = _plan_args("corr_slab", f1, f2)
+    perm = _sort_scratch(f1)  # alive until the launch is queued
     kernels.launch(
-        "corr_slab", f1.device, f1.data_ptr(), f2.data_ptr(), coords.data_ptr(), slab.data_ptr(),
-        n, p, h2, w2, c, radius, int(f1.dtype == torch.bfloat16), *plan,
+        "corr_slab", f1.device, f1.data_ptr(), f2.data_ptr(), coords.data_ptr(), _ptr(perm),
+        slab.data_ptr(), n, p, h2, w2, c, radius, int(f1.dtype == torch.bfloat16), *plan,
+        dtype=_dtype_tag(f1),
     )
     return slab
 

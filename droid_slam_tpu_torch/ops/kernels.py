@@ -10,9 +10,11 @@ imported: the first wrapper call that needs a kernel builds its source,
 and :func:`build` builds several at once, one ``nvcc`` process per
 source, all started together.
 
-``LAUNCHES`` counts, per kernel, the launches its wrapper made: a wrapper
-launches through :func:`launch`, which adds one per launch and is the only
-place that does.
+``LAUNCHES`` counts, per kernel, the launches its wrapper made, and
+``DTYPE_LAUNCHES`` the same launches by kernel and feature type
+(``"corr_level_f32"``, ``"corr_level_bf16"``, ...) where the wrapper names
+one: a wrapper launches through :func:`launch`, which adds one per launch
+and is the only place that does.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -44,12 +46,12 @@ KERNELS = {
     "corr_level": (
         "corr_level.cu",
         "corr_level_launch",
-        [_VOIDP] * 4 + [_INT] * 12 + [_VOIDP],
+        [_VOIDP] * 5 + [_INT] * 12 + [_VOIDP],
     ),
     "corr_slab": (
         "corr_split.cu",
         "corr_slab_launch",
-        [_VOIDP] * 4 + [_INT] * 12 + [_VOIDP],
+        [_VOIDP] * 5 + [_INT] * 12 + [_VOIDP],
     ),
     "corr_window": (
         "corr_split.cu",
@@ -59,12 +61,14 @@ KERNELS = {
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+DTYPE_LAUNCHES: Dict[str, int] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    DTYPE_LAUNCHES.clear()
 
 
 def _nvcc() -> str:
@@ -164,10 +168,10 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, device, *args) -> None:
+def launch(name: str, device, *args, dtype: Optional[str] = None) -> None:
     """Call kernel ``name``'s C entry point with ``args`` on the current
     stream of ``device``; raise on a non-zero CUDA error, else count the
-    launch."""
+    launch (and under ``name_dtype`` when ``dtype`` is given)."""
     import torch
 
     fn = getattr(library(name), KERNELS[name][1])
@@ -176,3 +180,6 @@ def launch(name: str, device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
     LAUNCHES[name] += 1
+    if dtype is not None:
+        key = f"{name}_{dtype}"
+        DTYPE_LAUNCHES[key] = DTYPE_LAUNCHES.get(key, 0) + 1
