@@ -62,11 +62,26 @@ Phases, each of which fails the run:
      96x128, unscaled ATE), each within its ATE bound, scale band and
      keyframe range, with tracking and terminate walls and each kernel's
      launches, by feature type (each row must launch corr_level and the
-     split pair); row 1's terminate once more under torch.profiler, device
+     split pair; the trajectory filler's lookups are corr_level launches
+     too); row 1's terminate once more under torch.profiler, device
      activity only (device ms by kernel, busy share, the profile's cost);
      row 9 the cull replay of tests/test_engine_equivalence.py with the fixture
      weights on the GPU and the CPU: the same keyframes after every frame,
-     at least one cull, poses within 5e-3.
+     at least one cull, poses within 5e-3;
+  8. the host-driven engine, Droid(fused=False): (a) phase 5's frames at
+     the bench configuration, whose lookups all read the f32 video
+     features: corr_level_f32 launches equal to 4 x (probes + 16
+     initialisation iterations + 6 per later keyframe), none in bf16; the
+     tracking walls, 5 profiled frames (busy share beside phase 5's), one
+     terminate() launching the split pair 4 x (7 + 12) x chunks times, then
+     export_map into DIR/host_map and the consistent point cloud of the
+     terminated video against the same from CPU copies (masks agreeing on
+     >= 99.9% of the pixels, shared points within 1e-4 of their largest
+     |p|); (b) the
+     cull replay through the host engine on the card, the fused engine on
+     the card and the host engine on the CPU: the same keyframes after
+     every frame, at least one cull, poses within 5e-3; (c) phase 7's row 1
+     through the host engine, inside the same gates.
 
 It prints a `kernels` JSON line (corr_level, corr_slab and corr_window in
 bf16, corr_level_f32 and corr_slab_f32), the card's name and power limit,
@@ -605,19 +620,21 @@ def small_replay(torch, np, Droid, DroidConfig, init_params, seed: int):
     return res
 
 
-def main_path(torch, np, kernels, Droid, DroidConfig, init_params, seed: int, out_dir):
-    """Phase 5: Droid.track at the bench configuration; returns the result
-    and the Droid, which phase 6 terminates."""
-    cfg = DroidConfig(**BENCH_CONFIG)
+def bench_frames(torch, np, cfg, seed: int):
+    """The bench configuration's inputs on the card: 28 seeded frames, cycled,
+    and the intrinsics."""
     dev = torch.device("cuda")
-    droid = Droid(cfg, params=init_params(seed), device=dev)
     H, W = cfg.image_size
     rng = np.random.default_rng(seed)
     frames = [torch.from_numpy(rng.integers(0, 255, (H, W, 3), np.uint8)).to(dev) for _ in range(28)]
-    intr = torch.tensor([W * 1.2, W * 1.2, W / 2, H / 2], device=dev)
-    torch.cuda.synchronize()
+    return frames, torch.tensor([W * 1.2, W * 1.2, W / 2, H / 2], device=dev)
 
-    n_warm, n_timed = cfg.warmup + 4, 30
+
+def timed_tracking(torch, kernels, droid, frames, intr, n_warm: int, n_timed: int):
+    """Track n_warm frames, then n_timed timed ones, with the launch counts
+    reset before; returns (frames tracked, warm-up s, timed s, launches by
+    kernel, launches by kernel and feature type)."""
+    torch.cuda.synchronize()
     kernels.reset_launches()
     t = 0
     t0 = time.perf_counter()
@@ -632,8 +649,54 @@ def main_path(torch, np, kernels, Droid, DroidConfig, init_params, seed: int, ou
         t += 1
     droid.sync()
     elapsed = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    dtype_launches = dict(kernels.DTYPE_LAUNCHES)
+    return t, warm_s, elapsed, dict(kernels.LAUNCHES), dict(kernels.DTYPE_LAUNCHES)
+
+
+def profile_tracking(torch, droid, frames, intr, t: int, fps: float, out_dir, name: str):
+    """5 more frames from frame t under torch.profiler: device ms per frame
+    by kernel, that of corr_level and of the segment sums, and the busy
+    share against the unprofiled frame time of the timed window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n_prof = 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            droid.track(t, frames[t % len(frames)], intrinsics=intr)
+            t += 1
+        droid.sync()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    if out_dir is not None:
+        (out_dir / f"{name}.txt").write_text(events.table(sort_by="self_cuda_time_total", row_limit=40))
+    # the kernel rows only, as the table's own footer sums device time
+    kernel_us = {e.key: e.self_device_time_total for e in events
+                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation}
+    dev_ms = sum(kernel_us.values()) / 1e3 / n_prof
+    top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:8]
+    seg_ms, seg_calls = range_ms(events, DeviceType, "segment_sum")
+    return dict(
+        frames=n_prof,
+        profiled_wall_ms_per_frame=wall * 1e3 / n_prof,
+        device_ms_per_frame=dev_ms,
+        corr_level_ms_per_frame=sum(v for k, v in kernel_us.items() if "corr_level" in k) / 1e3 / n_prof,
+        segment_sum_ms_per_frame=seg_ms / n_prof,
+        segment_sum_calls_per_frame=seg_calls / n_prof,
+        device_busy_share=dev_ms * fps / 1e3,
+        top_kernels_ms_per_frame={k[:60]: v / 1e3 / n_prof for k, v in top},
+    )
+
+
+def main_path(torch, np, kernels, Droid, DroidConfig, init_params, seed: int, out_dir):
+    """Phase 5: Droid.track at the bench configuration; returns the result
+    and the Droid, which phase 6 terminates."""
+    cfg = DroidConfig(**BENCH_CONFIG)
+    droid = Droid(cfg, params=init_params(seed), device=torch.device("cuda"))
+    frames, intr = bench_frames(torch, np, cfg, seed)
+    n_timed = 30
+    t, warm_s, elapsed, launches, dtype_launches = timed_tracking(
+        torch, kernels, droid, frames, intr, cfg.warmup + 4, n_timed)
 
     poses, disps = droid.poses, droid.disps
     h, w = cfg.feat_size
@@ -658,37 +721,7 @@ def main_path(torch, np, kernels, Droid, DroidConfig, init_params, seed: int, ou
     log(f"  {res}")
 
     # device time by kernel over 5 more frames (after the counts were read)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    n_prof = 5
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_prof):
-            droid.track(t, frames[t % len(frames)], intrinsics=intr)
-            t += 1
-        droid.sync()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    if out_dir is not None:
-        (out_dir / "profile.txt").write_text(events.table(sort_by="self_cuda_time_total", row_limit=40))
-    # the kernel rows only, as the table's own footer sums device time
-    kernel_us = {e.key: e.self_device_time_total for e in events
-                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation}
-    dev_ms = sum(kernel_us.values()) / 1e3 / n_prof
-    top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:8]
-    seg_ms, seg_calls = range_ms(events, DeviceType, "segment_sum")
-    res["profile"] = dict(
-        frames=n_prof,
-        profiled_wall_ms_per_frame=wall * 1e3 / n_prof,
-        device_ms_per_frame=dev_ms,
-        corr_level_ms_per_frame=sum(v for k, v in kernel_us.items() if "corr_level" in k) / 1e3 / n_prof,
-        segment_sum_ms_per_frame=seg_ms / n_prof,
-        segment_sum_calls_per_frame=seg_calls / n_prof,
-        # against the unprofiled frame time of the timed window
-        device_busy_share=dev_ms * res["fps"] / 1e3,
-        top_kernels_ms_per_frame={k[:60]: v / 1e3 / n_prof for k, v in top},
-    )
+    res["profile"] = profile_tracking(torch, droid, frames, intr, t, res["fps"], out_dir, "profile")
     log(f"  profile: {res['profile']}")
     return res, droid
 
@@ -816,10 +849,11 @@ def protocol_rows():
     return cases + [(mode, 7, "float32", gate[0]) for mode, gate in METRIC_GATES.items()]
 
 
-def protocol_row(torch, np, kernels, evaluate, DroidConfig, k: int):
-    """Phase 7's row k (1-8) through run_slam, with the launch counts reset
-    before it and read after it. Returns (the row's result, the Droid, the
-    fill stream)."""
+def protocol_row(torch, np, kernels, evaluate, DroidConfig, k: int, fused: bool = True):
+    """Phase 7's row k (1-8) through run_slam with the fused engine, or with
+    the host-driven one (phase 8c), with the launch counts reset before it
+    and read after it. Returns (the row's result, the Droid, the fill
+    stream)."""
     mode, seed, dtype, bound = protocol_rows()[k - 1]
     mono = mode == "mono"
     frames, size = (MONO_FRAMES, MONO_SIZE) if mono else (METRIC_FRAMES, METRIC_SIZE)
@@ -829,7 +863,7 @@ def protocol_row(torch, np, kernels, evaluate, DroidConfig, k: int):
                          stereo=mode == "stereo", compute_dtype=dtype)
     torch.cuda.synchronize()
     kernels.reset_launches()
-    traj, droid, walls = evaluate.run_slam(config, str(WEIGHTS), track, fill, device="cuda")
+    traj, droid, walls = evaluate.run_slam(config, str(WEIGHTS), track, fill, device="cuda", fused=fused)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     dtype_launches = dict(kernels.DTYPE_LAUNCHES)  # by feature type
@@ -840,7 +874,8 @@ def protocol_row(torch, np, kernels, evaluate, DroidConfig, k: int):
     ate = scaled if mono else evaluate.score(ref, tstamps, traj, correct_scale=False)
     kf_lo, kf_hi = MONO_KEYFRAMES if mono else METRIC_KEYFRAMES
     s_lo, s_hi = MONO_SCALE if mono else METRIC_GATES[mode][1]
-    row = dict(row=k, mode=mode, seed=seed, dtype=dtype, frames=frames, image_size=list(size),
+    row = dict(row=k, engine="fused" if fused else "host", mode=mode, seed=seed, dtype=dtype, frames=frames,
+               image_size=list(size),
                ate=ate["ate_rmse"], ate_bound=bound, scale_corrected=mono, scale=scaled["scale"],
                scale_band=[s_lo, s_hi], keyframes=droid.counter, keyframe_range=[kf_lo, kf_hi],
                track_s=walls["track_s"], terminate_s=walls["terminate_s"], launches=launches,
@@ -849,7 +884,7 @@ def protocol_row(torch, np, kernels, evaluate, DroidConfig, k: int):
                      and kf_lo <= droid.counter <= kf_hi and launches["corr_level"] > 0
                      and launches["corr_slab"] > 0 and launches["corr_window"] > 0)
     by_type = " ".join(f"{name} {n}" for name, n in sorted(dtype_launches.items()))
-    log(f"  row {k} {mode:6s} seed {seed:2d} {dtype:8s}: ATE {row['ate']:.4f} "
+    log(f"  row {k} {row['engine']} {mode:6s} seed {seed:2d} {dtype:8s}: ATE {row['ate']:.4f} "
         f"({'scale-corrected' if mono else 'unscaled'}, bound {bound}), scale {row['scale']:.4f} "
         f"(band {s_lo}-{s_hi}), keyframes {droid.counter}/{frames}, tracking {walls['track_s']:.2f} s, "
         f"terminate {walls['terminate_s']:.2f} s, launches corr_level {launches['corr_level']} "
@@ -949,6 +984,133 @@ def synthetic_protocol(torch, np, kernels, evaluate, DroidConfig, render_sequenc
     return dict(rows=rows, cull=cull)
 
 
+def host_engine_path(torch, np, kernels, Droid, DroidConfig, init_params, visualization, seed: int,
+                     out_dir, fused_busy_share: float):
+    """Phase 8a: Droid(fused=False) at the bench configuration over phase
+    5's frames: the launch counts of the 42 tracked frames (every lookup of
+    the host engine reads the f32 video features), 5 more frames under
+    torch.profiler, one terminate() (the split pair), then export_map and
+    the consistent point cloud of the terminated video on the card against
+    the same on CPU copies."""
+    import tempfile
+    from types import SimpleNamespace
+
+    cfg = DroidConfig(**BENCH_CONFIG)
+    droid = Droid(cfg, params=init_params(seed), device=torch.device("cuda"), fused=False)
+    frames, intr = bench_frames(torch, np, cfg, seed)
+    n_timed = 30
+    t, warm_s, elapsed, launches, dtype_launches = timed_tracking(
+        torch, kernels, droid, frames, intr, cfg.warmup + 4, n_timed)
+    # the probe on every frame after the first, 16 initialisation
+    # iterations, 4 + 2 per keyframe after the warmup (no cull); 4 levels each
+    lookups = (t - 1) + 16 + (cfg.frontend_iters1 + cfg.frontend_iters2) * (t - cfg.warmup)
+    res = dict(
+        frames=t, keyframes=droid.counter, fps=n_timed / elapsed, timed_s=elapsed, warmup_s=warm_s,
+        launches=launches, dtype_launches=dtype_launches, n_edges=len(droid.edges),
+        n_inactive=len(droid.inactive_edges), expected_f32_launches=4 * lookups,
+        finite=bool(torch.isfinite(droid.poses).all() and torch.isfinite(droid.disps).all()),
+    )
+    res["tracking_ok"] = bool(res["finite"] and droid.counter == t
+                              and launches["corr_level"] == res["expected_f32_launches"]
+                              and dtype_launches.get("corr_level_f32") == res["expected_f32_launches"]
+                              and "corr_level_bf16" not in dtype_launches)
+    log(f"  tracking: {res}")
+    res["profile"] = profile_tracking(torch, droid, frames, intr, t, res["fps"], out_dir, "profile_host")
+    log(f"  profile: {res['profile']}; device busy share {res['profile']['device_busy_share']:.3f} "
+        f"(fused engine, phase 5: {fused_busy_share:.3f})")
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    traj = droid.terminate()
+    torch.cuda.synchronize()
+    steps_x_chunks = sum(steps * chunks for steps, (_, chunks) in zip((7, 12), droid.backend_runs))
+    term = dict(wall_s=time.perf_counter() - t0, keyframes=droid.counter, backend_runs=droid.backend_runs,
+                launches={**kernels.LAUNCHES, **kernels.DTYPE_LAUNCHES},
+                expected_split_launches=4 * steps_x_chunks, finite=bool(np.isfinite(traj).all()))
+    term["ok"] = bool(term["finite"] and traj.shape == (droid.counter, 7) and steps_x_chunks > 0
+                      and term["launches"]["corr_slab"] == term["launches"]["corr_window"]
+                      == term["expected_split_launches"])
+    res["terminate"] = term
+    log(f"  terminate: {term}")
+
+    # the map: export, then the same point cloud from CPU copies of the video
+    v = droid.video
+    map_dir = Path(out_dir if out_dir is not None else tempfile.mkdtemp()) / "host_map"
+    t0 = time.perf_counter()
+    n_points = visualization.export_map(v, str(map_dir))
+    export_s = time.perf_counter() - t0
+    gp, gc, gm = visualization.consistent_points(v)
+    cpu_video = SimpleNamespace(counter=v.counter, poses=v.poses.cpu(), disps=v.disps.cpu(),
+                                intrinsics=v.intrinsics.cpu(), images=v.images.cpu())
+    cp, cc, cm = visualization.consistent_points(cpu_video)
+    shared = gm & cm
+    # the kept points' scale (a pixel of tiny disparity back-projects far out)
+    scale = float(np.abs(cp[shared]).max()) if shared.any() else 0.0
+    vis = dict(points=n_points, export_s=export_s, pixels=int(gm.size), kept_gpu=int(gm.sum()),
+               kept_cpu=int(cm.sum()), mask_agreement=float((gm == cm).mean()),
+               point_err=float(np.abs(gp[shared] - cp[shared]).max()) if shared.any() else 0.0,
+               point_tol=1e-4 * scale, colors_equal=bool(np.array_equal(gc, cc)),
+               files=sorted(p.name for p in map_dir.iterdir()))
+    vis["ok"] = bool(n_points == vis["kept_gpu"] and vis["mask_agreement"] >= 0.999
+                     and vis["point_err"] <= vis["point_tol"] and vis["colors_equal"]
+                     and vis["files"] == ["map.ply", "poses_c2w.npy"]
+                     and np.load(map_dir / "poses_c2w.npy").shape == (v.counter, 7))
+    res["map"] = vis
+    log(f"  map: {vis}")
+    res["ok"] = bool(res["tracking_ok"] and term["ok"] and vis["ok"])
+    return res
+
+
+def host_cull_replay(torch, np, Droid, DroidConfig, render_sequence):
+    """Phase 8b: the cull replay of tests/test_engine_equivalence.py:149-195
+    through the host engine on the card, the fused engine on the card and
+    the host engine on the CPU: the same keyframes after every frame, at
+    least one cull, poses within 5e-3 of the first run's."""
+    seq = render_sequence(np.random.default_rng(7), n_frames=CULL_FRAMES, image_size=CULL_CONFIG["image_size"],
+                          t_sigma=0.25, r_sigma=0.02)
+    runs = {}
+    for name, device, fused in (("host_gpu", "cuda", False), ("fused_gpu", "cuda", True),
+                                ("host_cpu", "cpu", False)):
+        d = Droid(DroidConfig(**CULL_CONFIG), weights=str(FIXTURE_WEIGHTS), device=device, fused=fused)
+        hist = []
+        t0 = time.perf_counter()
+        for t in range(CULL_FRAMES):
+            d.track(t, seq["images"][t], intrinsics=seq["intrinsics"][t])
+            hist.append(d.tstamps.tolist())
+        runs[name] = dict(hist=hist, poses=d.poses.cpu().numpy(), wall_s=time.perf_counter() - t0)
+    ref = runs["host_gpu"]
+    res = dict(keyframes=len(ref["hist"][-1]), tstamps=ref["hist"][-1],
+               walls_s={k: r["wall_s"] for k, r in runs.items()}, first_flip={}, pose_err={})
+    for name in ("fused_gpu", "host_cpu"):
+        flip = next((t for t in range(CULL_FRAMES) if runs[name]["hist"][t] != ref["hist"][t]), None)
+        res["first_flip"][name] = None if flip is None else dict(
+            frame=flip, host_gpu=ref["hist"][flip], other=runs[name]["hist"][flip])
+        if flip is None:
+            res["pose_err"][name] = float(np.abs(runs[name]["poses"] - ref["poses"]).max())
+    res["same_keyframes"] = all(f is None for f in res["first_flip"].values())
+    res["ok"] = bool(res["same_keyframes"] and res["keyframes"] < CULL_FRAMES
+                     and all(e < 5e-3 for e in res["pose_err"].values()))
+    log(f"  cull replay (fixture weights, {CULL_FRAMES} frames, 96x128): {res}")
+    return res
+
+
+def host_engine(torch, np, kernels, Droid, DroidConfig, init_params, visualization, evaluate,
+                render_sequence, seed: int, out_dir, fused_busy_share: float, row1_keyframes: int):
+    """Phase 8: the host-driven engine. 8a at the bench configuration, 8b
+    the cull replay, 8c phase 7's row 1 through the host engine."""
+    log("phase 8a: host engine at the bench configuration")
+    bench = host_engine_path(torch, np, kernels, Droid, DroidConfig, init_params, visualization, seed,
+                             out_dir, fused_busy_share)
+    log("phase 8b: cull replay, host engine (card, CPU) and fused engine (card)")
+    cull = host_cull_replay(torch, np, Droid, DroidConfig, render_sequence)
+    log("phase 8c: protocol row 1 through the host engine")
+    row, droid, _ = protocol_row(torch, np, kernels, evaluate, DroidConfig, 1, fused=False)
+    del droid
+    log(f"  keyframes {row['keyframes']} (fused engine, phase 7 row 1: {row1_keyframes})")
+    return dict(bench=bench, cull=cull, row1=row, ok=bench["ok"] and cull["ok"] and row["ok"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
@@ -969,6 +1131,7 @@ def main(argv=None) -> int:
     from droid_slam_tpu_torch.ops import corr, kernels, segment
     from droid_slam_tpu_torch.ops import projective as pops
     from droid_slam_tpu_torch.runtime import Droid, DroidConfig
+    from droid_slam_tpu_torch.utils import visualization
 
     dev = torch.device("cuda")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
@@ -1029,6 +1192,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     proto = synthetic_protocol(torch, np, kernels, evaluate, DroidConfig, render_sequence, Droid, args.out)
     proto["wall_s"] = time.perf_counter() - t0
+
+    log("phase 8: host-driven engine, Droid(fused=False)")
+    t0 = time.perf_counter()
+    host = host_engine(torch, np, kernels, Droid, DroidConfig, init_params, visualization, evaluate,
+                       render_sequence, args.seed, args.out, main_res["profile"]["device_busy_share"],
+                       proto["rows"][0]["keyframes"])
+    host["wall_s"] = time.perf_counter() - t0
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1114,7 +1284,8 @@ def main(argv=None) -> int:
             tf32_defaults=tf32_defaults,
             build_s=build_s, sass=sass, cases=cases, split_cases=split_cases, segment_cases=seg_cases,
             small_replay=small,
-            main_path=main_res, terminate_path=term_res, synthetic_protocol=proto, kernels=kernel_rows,
+            main_path=main_res, terminate_path=term_res, synthetic_protocol=proto, host_engine=host,
+            kernels=kernel_rows,
         ), indent=1))
 
     failed = [f"{f}: no tensor-core instructions" for f, k in tile_mma.items() if k == 0]
@@ -1154,6 +1325,10 @@ def main(argv=None) -> int:
                for r in proto["rows"] if not r["ok"]]
     if not proto["cull"]["ok"]:
         failed.append(f"synthetic row 9 cull replay: {proto['cull']}")
+    failed += [f"host engine {part}" for part, ok in (
+        ("8a tracking", host["bench"]["tracking_ok"]), ("8a terminate", host["bench"]["terminate"]["ok"]),
+        ("8a map", host["bench"]["map"]["ok"]), ("8b cull replay", host["cull"]["ok"]),
+        ("8c row 1", host["row1"]["ok"])) if not ok]
     if failed:
         print("chip_smoke: FAILED: " + "; ".join(failed), file=sys.stderr)
         return 1
@@ -1174,6 +1349,15 @@ def main(argv=None) -> int:
                 f"{FIRST_DESIGN_MS[row['name']]} ms (a constant from earlier runs)")
     log(f"f32 launches of phase 7 row 1 (mono seed 7, f32): {row1['dtype_launches']}; "
         f"phase 5 (bf16 tracking, f32 probe): {main_res['dtype_launches']}")
+    hb, hterm, hrow = host["bench"], host["bench"]["terminate"], host["row1"]
+    log(f"host engine (phase 8, {host['wall_s']:.1f} s): {hb['fps']:.2f} frames/s (fused {main_res['fps']:.2f}), "
+        f"device busy {hb['profile']['device_busy_share']:.3f} (fused "
+        f"{main_res['profile']['device_busy_share']:.3f}), corr_level_f32 launches "
+        f"{hb['dtype_launches'].get('corr_level_f32')}; terminate {hterm['wall_s']:.3f} s, corr_slab/corr_window "
+        f"{hterm['launches']['corr_slab']}/{hterm['launches']['corr_window']}; map {hb['map']['points']} points, "
+        f"masks agree {hb['map']['mask_agreement']:.5f}; cull replay {host['cull']['keyframes']} keyframes "
+        f"on all three runs; row 1 ATE {hrow['ate']:.4f}, keyframes {hrow['keyframes']} "
+        f"(fused {row1['keyframes']})")
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,8 @@ The port's counterpart of the JAX package's ``apps/evaluate.py`` for
 image), ``terminate`` with every frame as the fill stream, and score the
 trajectory (:mod:`..eval.ate`): scale-corrected ATE in mono, unscaled in
 the two metric modes. The file-based protocols (tum, euroc, eth3d,
-tartanair) need the port's dataset streams and image loader, which are
-ROADMAP item 12; they exit with an error.
+tartanair) need the port's dataset streams and image loader, the next item
+of ROADMAP.md's queue 1; they exit with an error.
 
 Usage:
   python -m droid_slam_tpu_torch.apps.evaluate --dataset synthetic
@@ -63,15 +63,16 @@ def synthetic_streams(seed: int, frames: int, image_size, stereo: bool = False, 
 
 
 def run_slam(config, weights: Optional[str], track_stream: Sequence, fill_stream: Sequence,
-             device=None):
+             device=None, fused: bool = True):
     """Track every item of ``track_stream`` ((t, image, intrinsics) or
-    (t, image, depth, intrinsics)), then ``terminate`` with
+    (t, image, depth, intrinsics)) with the fused engine, or with the
+    host-driven one when ``fused`` is false, then ``terminate`` with
     ``fill_stream``. Returns (camera-to-world poses [T, 7], the Droid,
     walls): walls holds the seconds of tracking and of terminate, each
     ended by a device synchronise."""
     from ..runtime import Droid
 
-    droid = Droid(config, weights=weights, device=device)
+    droid = Droid(config, weights=weights, device=device, fused=fused)
     t0 = time.perf_counter()
     for item in track_stream:
         if len(item) == 4:
@@ -117,7 +118,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     args = parser.parse_args(argv)
     if args.dataset in FILE_DATASETS:
         parser.error(f"--dataset {args.dataset} needs the port's dataset streams and native image "
-                     "loader, which are ROADMAP item 12; the port runs --dataset synthetic")
+                     "loader, which are not ported yet (ROADMAP.md, queue 1); the port runs "
+                     "--dataset synthetic")
 
     from ..runtime.config import DroidConfig
 

@@ -6,7 +6,7 @@ stands in for the ``evo`` tool of the reference's evaluation scripts: APE
 on translation after SE(3) or Sim(3) Umeyama alignment, with optional scale
 correction (monocular protocols align and scale; RGB-D and stereo are
 metric and align without scale). The file loaders of the dataset protocols
-wait for the port's dataset streams (ROADMAP item 12).
+wait for the port's dataset streams (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations

@@ -6,15 +6,14 @@ in a (2r+1)² bilinear window around each source pixel's target coordinates.
 Channel order of the result is (level, i, j) with i the x-offset; taps
 outside the map are 0.
 
-Three formulations, as in the JAX package:
+Two formulations of the JAX package's three (its volume mode, the
+all-pairs volume pooled over the target dims, computes the fused lookup's
+function, ``droid_slam_tpu/ops/corr.py:186-201``; the port uses the fused
+lookup where the JAX package uses the volume):
 
-* volume mode (:func:`corr_volume`, :func:`build_pyramid`,
-  :func:`corr_index`, :class:`CorrPyramid`): the all-pairs volume as a
-  batched matmul, pooled over the target dims. The trajectory filler's
-  operator step uses it. The JAX package computes it in XLA, with no
-  Pallas kernel.
-* fused lookup (:func:`corr_lookup` → :func:`corr_level`): the tracking
-  path. On a CUDA tensor :func:`corr_level` launches ``csrc/corr_level.cu``.
+* fused lookup (:func:`corr_lookup` → :func:`corr_level`): both tracking
+  engines, the motion probe and the trajectory filler. On a CUDA tensor
+  :func:`corr_level` launches ``csrc/corr_level.cu``.
 * split lookup (:class:`AltCorr` → :func:`corr_level_split`): the global
   backend. Stage A (:func:`corr_slab`, ``csrc/corr_split.cu``) writes the
   8 volume rows of each pixel's window support across the full width;
@@ -98,54 +97,6 @@ def _window_sample(vol: Tensor, coords: Tensor, radius: int) -> Tensor:
     patch = torch.gather(vol.reshape(m, h2 * w2), 1, idx.reshape(m, sup * sup))
     patch = torch.where(ok, patch.reshape(m, sup, sup), torch.zeros((), device=vol.device))
     return _blend(patch, dx, dy, radius)
-
-
-# -----------------------------------------------------------------------------
-# volume mode
-# -----------------------------------------------------------------------------
-
-
-def corr_volume(fmap1: Tensor, fmap2: Tensor) -> Tensor:
-    """All-pairs correlation: [N, H, W, C] × [N, H, W, C] → [N, H, W, H, W]
-    f32, ⟨f1/4, f2/4⟩ per pixel pair (f32 arithmetic for bf16 inputs too)."""
-    n, h, w, c = fmap1.shape
-    f1 = (fmap1 * 0.25).reshape(n, h * w, c).float()
-    f2 = (fmap2 * 0.25).reshape(n, h * w, c).float()
-    return torch.bmm(f1, f2.transpose(1, 2)).reshape(n, h, w, h, w)
-
-
-def build_pyramid(corr: Tensor, num_levels: int = 4) -> List[Tensor]:
-    """Average-pool pyramid over the target spatial dims."""
-    pyramid = [corr]
-    for _ in range(num_levels - 1):
-        pyramid.append(avg_pool2x2(pyramid[-1]))
-    return pyramid
-
-
-def corr_index(volume: Tensor, coords: Tensor, radius: int = 3) -> Tensor:
-    """Window lookup into a volume [N, H1, W1, H2, W2] at coords
-    [N, H1, W1, 2] → [N, H1, W1, (2r+1)²]."""
-    n, h1, w1, h2, w2 = volume.shape
-    out = _window_sample(volume.reshape(n * h1 * w1, h2, w2), coords.reshape(-1, 2), radius)
-    return out.reshape(n, h1, w1, -1)
-
-
-class CorrPyramid:
-    """Precomputed 4-level correlation pyramid (volume mode);
-    ``levels[i]`` is [N, H1, W1, H2/2^i, W2/2^i]."""
-
-    def __init__(self, levels: List[Tensor], radius: int):
-        self.levels = levels
-        self.radius = radius
-
-    @staticmethod
-    def build(fmap1: Tensor, fmap2: Tensor, num_levels: int = 4, radius: int = 3) -> "CorrPyramid":
-        return CorrPyramid(build_pyramid(corr_volume(fmap1, fmap2), num_levels), radius)
-
-    def __call__(self, coords: Tensor) -> Tensor:
-        """coords [N, H1, W1, 2] → [N, H1, W1, L·(2r+1)²]."""
-        out = [corr_index(lvl, coords / (2.0**i), self.radius) for i, lvl in enumerate(self.levels)]
-        return torch.cat(out, dim=-1)
 
 
 # -----------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Covisibility factor graph over keyframes (PyTorch).
 
-Counterpart of the JAX package's ``runtime/factor_graph.py`` for the paths
-the global backend and the trajectory filler run:
+Counterpart of the JAX package's ``runtime/factor_graph.py``, the graph of
+the host-driven engine's frontend, the global backend and the trajectory
+filler:
 
 * canonical edge bookkeeping (ii, jj, age, validity, the inactive ring)
   lives on the host in numpy, padded to static capacities, copied from the
@@ -9,16 +10,21 @@ the global backend and the trajectory filler run:
 * per-edge device state (GRU hidden ``net``, flow ``target``, confidence
   ``weight``) lives in [edge_pad, ...] tensors; adds and removals are masked
   writes (:func:`_add_edges`, :func:`_deactivate_edges`);
-* :meth:`FactorGraph.update` is one operator iteration with volume-mode
-  correlation and the block-sparse BA (the filler's motion-only step);
+* the host engine's edits: keyframe removal (:meth:`FactorGraph.rm_keyframe`,
+  which shifts every video buffer and the damping down), neighbourhood
+  edges and confidence filtering;
+* :meth:`FactorGraph.update` is one operator iteration with the fused
+  correlation lookup (:func:`..ops.corr.corr_lookup`, the ``corr_level``
+  kernel on a CUDA tensor) and the block-sparse BA: the host engine's
+  frontend iteration and the filler's motion-only step. The JAX package
+  computes the same function as an all-pairs volume
+  (``droid_slam_tpu/ops/corr.py:186-201``).
   :meth:`FactorGraph.update_lowmem` is the backend's global-BA iteration,
   with the split correlation lookup (:class:`..ops.corr.AltCorr`) over
   chunks of edges.
 
 Both paths take a stereo rig (``config.stereo``): a self edge (i, i)
-matches keyframe i's left image against its right one. Keyframe removal,
-neighbourhood edges and confidence filtering belong to the host-driven
-engine and are not ported yet.
+matches keyframe i's left image against its right one.
 """
 
 from __future__ import annotations
@@ -271,6 +277,51 @@ class FactorGraph:
         """mask: [edge_pad] bool over slots (only valid slots count)."""
         self._deactivate(np.nonzero(mask & self.valid)[0], store=store)
 
+    def filter_edges(self) -> None:
+        """Remove the edges farther than 2 keyframes apart whose mean
+        confidence is below 1e-3, and remember them as bad edges
+        (factor_graph.py:71-78). As in the reference, no engine calls it;
+        it serves users who drive the graph directly."""
+        conf = self.edges.weight.mean(dim=(1, 2, 3)).cpu().numpy()
+        mask = (np.abs(self.ii - self.jj) > 2) & (conf < 0.001) & self.valid
+        for s in np.nonzero(mask)[0]:
+            self.bad_edges.add((int(self.ii[s]), int(self.jj[s])))
+        self.rm_factors(mask, store=False)
+
+    def rm_keyframe(self, ix: int) -> None:
+        """Remove keyframe ix (factor_graph.py:166-195): every video buffer
+        and the per-frame damping move down one slot from ix (the last slot
+        keeps its value), the edges touching ix are dropped and the rest
+        reindexed, active, inactive and bad alike."""
+        v = self.video
+        B = v.poses.shape[0]
+        idx = torch.arange(B, device=self.device)
+        src = torch.where(idx >= ix, (idx + 1).clamp(max=B - 1), idx)
+        for name in ("tstamp", "images", "poses", "disps", "disps_sens", "disps_up",
+                     "intrinsics", "fmaps", "nets", "inps"):
+            setattr(v, name, getattr(v, name)[src])
+        # the damping is indexed by keyframe too: left behind, frame k + 1's
+        # damping would apply to frame k after the removal
+        self.damping = self.damping[src]
+
+        m = (self.ii_inac == ix) | (self.jj_inac == ix)
+        self.valid_inac &= ~m
+        self.ii_inac = np.where(self.ii_inac > ix, self.ii_inac - 1, self.ii_inac)
+        self.jj_inac = np.where(self.jj_inac > ix, self.jj_inac - 1, self.jj_inac)
+        self.inactive.ii = self._dev(self.ii_inac)
+        self.inactive.jj = self._dev(self.jj_inac)
+        self.inactive.valid = torch.as_tensor(self.valid_inac, device=self.device)
+
+        self.bad_edges = {(i - (i > ix), j - (j > ix)) for (i, j) in self.bad_edges
+                          if i != ix and j != ix}
+
+        m = ((self.ii == ix) | (self.jj == ix)) & self.valid
+        self.ii = np.where(self.ii > ix, self.ii - 1, self.ii)
+        self.jj = np.where(self.jj > ix, self.jj - 1, self.jj)
+        self.edges.ii = self._dev(self.ii)
+        self.edges.jj = self._dev(self.jj)
+        self.rm_factors(m, store=False)
+
     def clear_edges(self) -> None:
         self.rm_factors(self.valid.copy(), store=False)
 
@@ -290,9 +341,10 @@ class FactorGraph:
         EP: float = 1e-7,
         motion_only: bool = False,
     ) -> None:
-        """One operator iteration (factor_graph.py:199-251): reproject,
-        volume-mode correlation, ConvGRU update, block-sparse BA (lm 1e-4,
-        ep 0.1, f32 Schur storage)."""
+        """One operator iteration (factor_graph.py:199-251): reproject, the
+        fused correlation lookup, ConvGRU update, block-sparse BA (lm 1e-4,
+        ep 0.1, f32 Schur storage). Marks the keyframes from the first
+        active source to t1 dirty."""
         if self.num_active == 0:
             return
         active_ii = self.ii[self.valid]
@@ -301,6 +353,8 @@ class FactorGraph:
             t0 = max(1, int(active_ii.min()) + 1)
         if t1 is None:
             t1 = max(int(active_ii.max()), int(active_jj.max())) + 1
+        if t1 - t0 > self.window_pad:
+            raise ValueError(f"BA window {t1 - t0} > window_pad {self.window_pad}")
         kf0 = max(0, min(int(active_ii.min()), t0) - 1)
         agg_frames = self.window_pad + 8
         self._sync_device_edges()
@@ -322,7 +376,7 @@ class FactorGraph:
         motn = torch.cat([coords1 - coords0, g.target - coords1], -1).clamp(-64.0, 64.0)
         # stereo self edges (i, i) match the left image against the right
         rig2 = (ii == jj).long() if v.config.stereo else 0
-        corr = corr_ops.CorrPyramid.build(v.fmaps[ii, 0], v.fmaps[jj, rig2])(coords1)
+        corr = corr_ops.corr_lookup(v.fmaps[ii, 0], v.fmaps[jj, rig2], coords1)
 
         k_rel = (ii - kf0).clamp(0, agg_frames - 1)
         net, delta, weight, eta_win, upmask = self.update_op(
@@ -360,6 +414,7 @@ class FactorGraph:
             v.disps_up = persist_window(v.disps_up, up_win, touched, kf0_t)
 
         self.age[self.valid] += 1
+        v.dirty[int(active_ii.min()) : t1] = True
 
     def _lowmem_step(self, edges: EdgeState, pairs, t0: int, t1: int, window: int, chunk: int,
                      itrs: int, EP: float, lm: float = 1e-5, ep_ba: float = 1e-2) -> None:
@@ -452,6 +507,7 @@ class FactorGraph:
         )
         for _ in range(steps):
             self._lowmem_step(edges, pairs, t0, t1, window, chunk, itrs, EP)
+        self.video.dirty[:t] = True
         # write the per-edge state back (the slots past n_used are invalid)
         for name in ("net", "target", "weight"):
             full = getattr(self.edges, name)
@@ -459,6 +515,16 @@ class FactorGraph:
         return -(-n_used // chunk)
 
     # --------------------------------------------------- edge construction
+
+    def add_neighborhood_factors(self, t0: int, t1: int, r: int = 3) -> None:
+        """Edges between the keyframes of [t0, t1) at most ``r`` apart
+        (factor_graph.py:304-314); in stereo also not 1 apart."""
+        ii, jj = np.meshgrid(np.arange(t0, t1), np.arange(t0, t1), indexing="ij")
+        ii = ii.reshape(-1)
+        jj = jj.reshape(-1)
+        c = 1 if self.video.config.stereo else 0
+        keep = (np.abs(ii - jj) > c) & (np.abs(ii - jj) <= r)
+        self.add_factors(ii[keep], jj[keep])
 
     def add_proximity_factors(
         self,

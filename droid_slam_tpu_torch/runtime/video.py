@@ -3,11 +3,13 @@
 Counterpart of the JAX package's ``runtime/video.py``: the RGB-D prior, the
 masked frame distance behind proximity edge selection and the keyframe cull
 test, the padded window read/write used for the per-keyframe damping, and
-:class:`VideoState`, the keyframe buffers that the global backend and the
-trajectory filler work on.
+:class:`VideoState`, the keyframe buffers that the host-driven engine
+appends to and that the global backend and the trajectory filler work on.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -100,13 +102,15 @@ def _normalize(poses: Tensor, disps: Tensor, count: int):
 class VideoState:
     """The keyframe buffers of one device (depth_video.py:24-45 layout).
 
-    Buffers are plain tensors that the backend and the trajectory filler
-    replace or update in place: tstamp [B], images [B, H, W, 3] uint8,
-    poses [B, 7] world→camera (t, q_xyzw), disps / disps_sens [B, h, w],
-    intrinsics [B, 4] at 1/8 resolution, fmaps [B, rig, h, w, 128] (rig 2
-    in stereo: left, right),
-    nets / inps [B, h, w, 128], disps_up [B, H, W]. ``counter`` is the
-    host-side keyframe count.
+    Buffers are plain tensors that the engines, the backend and the
+    trajectory filler replace or update in place: tstamp [B], images
+    [B, H, W, 3] uint8, poses [B, 7] world→camera (t, q_xyzw), disps /
+    disps_sens [B, h, w], intrinsics [B, 4] at 1/8 resolution, fmaps
+    [B, rig, h, w, 128] (rig 2 in stereo: left, right), nets / inps
+    [B, h, w, 128], disps_up [B, H, W]; all float buffers are f32.
+    ``counter`` is the host-side keyframe count and ``dirty`` [B] the host
+    flags that mark keyframes the visualiser has not drawn since they
+    changed.
     """
 
     def __init__(self, config, device):
@@ -115,6 +119,7 @@ class VideoState:
         h, w = config.feat_size
         self.config = config
         self.counter = 0
+        self.dirty = np.zeros(B, bool)
 
         def zeros(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=device)
@@ -129,6 +134,60 @@ class VideoState:
         self.fmaps = zeros(B, 2 if config.stereo else 1, h, w, 128)
         self.nets = zeros(B, h, w, 128)
         self.inps = zeros(B, h, w, 128)
+
+    # ------------------------------------------------------------------ state
+
+    def append(self, tstamp: float, image: Tensor, pose: Optional[Tensor], disp: Optional[float],
+               depth: Optional[Tensor], intrinsics: Tensor, fmap: Tensor, net: Tensor,
+               inp: Tensor) -> int:
+        """Write a new keyframe at the counter (depth_video.py:109-112):
+        image [H, W, 3] or [rig, H, W, 3] (the left one is stored),
+        intrinsics [4] at 1/8 resolution, fmap [rig, h, w, 128], net / inp
+        [h, w, 128]; each value is cast to its buffer's dtype. Without
+        ``pose`` / ``disp`` the slot keeps what the motion model wrote
+        there. Returns the slot. Raises when the buffer is full."""
+        ix = self.counter
+        if ix >= self.poses.shape[0]:
+            raise RuntimeError(f"keyframe buffer full ({ix}); increase DroidConfig.buffer")
+        self.tstamp[ix] = float(tstamp)
+        self.images[ix] = (image[0] if image.dim() == 4 else image).to(torch.uint8)
+        if pose is not None:
+            self.poses[ix] = pose
+        if disp is not None:
+            self.disps[ix] = disp
+        if depth is not None:
+            h, w = self.config.feat_size
+            self.disps_sens[ix] = _depth_to_disp_sens(depth, h, w)
+        self.intrinsics[ix] = intrinsics.to(self.intrinsics.dtype)
+        self.fmaps[ix] = fmap.to(self.fmaps.dtype)
+        self.nets[ix] = net.to(self.nets.dtype)
+        self.inps[ix] = inp.to(self.inps.dtype)
+        self.counter = ix + 1
+        self.dirty[ix] = True
+        return ix
+
+    def set_pose(self, ix: int, pose: Tensor) -> None:
+        """poses[ix] = pose; a slot past the buffer is dropped, as the JAX
+        package's scatter drops it (the motion model seeds the slot after
+        the last keyframe)."""
+        if ix < self.poses.shape[0]:
+            self.poses[ix] = pose
+
+    def set_disp(self, ix: int, disp) -> None:
+        """disps[ix] = disp (a map or a scalar); a slot past the buffer is
+        dropped."""
+        if ix < self.disps.shape[0]:
+            self.disps[ix] = disp
+
+    # -------------------------------------------------------------- geometry
+
+    def reproject(self, ii, jj) -> Tuple[Tensor, Tensor]:
+        """Map the pixels of keyframes ii into keyframes jj
+        (depth_video.py:142-150): (coords [N, h, w, 2], valid [N, h, w, 1])."""
+        dev = self.poses.device
+        ii = torch.as_tensor(np.asarray(ii, np.int64).reshape(-1), device=dev)
+        jj = torch.as_tensor(np.asarray(jj, np.int64).reshape(-1), device=dev)
+        return pops.projective_transform(self.poses, self.disps, self.intrinsics, ii, jj)
 
     def distance(self, ii, jj, beta: float = 0.3, bidirectional: bool = True) -> np.ndarray:
         """Flow-magnitude distance between keyframe pairs
@@ -155,3 +214,4 @@ class VideoState:
 
     def normalize(self) -> None:
         self.poses, self.disps = _normalize(self.poses, self.disps, self.counter)
+        self.dirty[: self.counter] = True

@@ -171,7 +171,7 @@ def test_evaluate_file_datasets_wait_for_item_12(dataset, capsys):
     with pytest.raises(SystemExit) as exc:
         evaluate.main(["--dataset", dataset, "--device", "cpu"])
     assert exc.value.code == 2
-    assert "ROADMAP item 12" in capsys.readouterr().err
+    assert "not ported yet (ROADMAP.md, queue 1)" in capsys.readouterr().err
 
 
 # tests/test_accuracy.py::SEED_GATES: (seed, compute dtype, ATE bound)
