@@ -81,12 +81,32 @@ Phases, each of which fails the run:
      cull replay through the host engine on the card, the fused engine on
      the card and the host engine on the CPU: the same keyframes after
      every frame, at least one cull, poses within 5e-3; (c) phase 7's row 1
-     through the host engine, inside the same gates.
+     through the host engine, inside the same gates;
+  9. training: (a) run before phase 4, beside the other kernel checks
+     (late in a run torch.profiler has dropped device events):
+     corr_backward, the backward of the lookup (csrc/corr_backward.cu),
+     against autograd through corr_level_ref at the training path's
+     shapes (208 edges, 48x64 down to 6x8, C=128, f32)
+     with iid (timed, with the plain version, its bound and autograd's
+     backward of one F.grid_sample call over the same windows), smooth and
+     far-out coords, bitwise on a second run, and no tensor-core
+     instruction in its SASS; (b) one grad pass on a small seeded batch,
+     card against CPU: the loss and every parameter's gradient within
+     TRAIN_LOSS_TOL and TRAIN_GRAD_TOL; (c) apps/train.py's train loop at
+     its defaults (384x512, 7 frames, 15 iterations, 52 edge slots, batch
+     4) for 3 optimizer steps with a restart pass: finite losses and
+     gradients, corr_level_f32 and corr_backward launches equal to their
+     counts per pass, step walls, the last step's device time, busy share
+     and the peak of allocated memory; (d) LEARN_STEPS steps on one clip
+     cut the loss by LEARN_RATIO; (e) a saved train state restores bit for
+     bit and its next step's loss and gradients match the uninterrupted
+     step's.
 
 It prints a `kernels` JSON line (corr_level, corr_slab and corr_window in
-bf16, corr_level_f32 and corr_slab_f32), the card's name and power limit,
-and as its last line {"ok": true, "device": {...}}. With ``--out DIR`` the
-details go to DIR/chip_smoke.json and the profile tables to DIR/*.txt.
+bf16, corr_level_f32, corr_slab_f32 and corr_backward), the card's name
+and power limit, and as its last line {"ok": true, "device": {...}}.
+With ``--out DIR`` the details go to DIR/chip_smoke.json and the profile
+tables to DIR/*.txt.
 
 Without a CUDA device, or without the droid_slam_tpu_torch package beside
 it, the script exits non-zero and prints no result.
@@ -95,6 +115,7 @@ it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -157,8 +178,14 @@ SMALL_CONFIG = dict(
 )
 
 
+LOG_PATH = None  # --out DIR: every log line also goes to DIR/chip_smoke.log
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    if LOG_PATH is not None:
+        with LOG_PATH.open("a") as f:
+            f.write(msg + "\n")
 
 
 def is_f32_function(name: str) -> bool:
@@ -185,23 +212,60 @@ def cuda_ms(torch, fn, reps: int, warm: int = 3) -> float:
 
 def device_ms(torch, fn, reps: int, warm: int = 3) -> float:
     """Mean device time of fn per call: the sum of the self device times of
-    every kernel fn launched, over reps calls, by torch.profiler."""
+    every kernel fn launched, by torch.profiler, over one untimed call (the
+    session's first launches carry its set-up) and reps timed calls. A
+    profile must hold one kernel record for each kernel launch the host made
+    (the profiler drops records now and then);
+    and where the host queued the timed calls in under half of the span of
+    two CUDA events around them, the device was the bottleneck and busy the
+    whole span, so the profile must cover at least 0.7 of it. A profile that
+    fails is taken again, twice; a third failure raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # the profiler can come back without device events; ask again
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            start.record()
+            t0 = time.perf_counter()
             for _ in range(reps):
                 fn()
+            queued_ms = (time.perf_counter() - t0) * 1e3
+            end.record()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
-        if total > 0:
-            return total / 1e3 / reps
-    raise RuntimeError("torch.profiler recorded no device time")
+        span_ms = start.elapsed_time(end)
+        stats = prof.key_averages()
+        device = [e for e in stats if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        ms = sum(e.self_device_time_total for e in device) / 1e3 / (reps + 1)
+        records, launches = launch_records(
+            (e.key, e.device_type == DeviceType.CUDA and not e.is_user_annotation, e.count) for e in stats)
+        if ms > 0 and records >= launches and (queued_ms >= 0.5 * span_ms or ms * reps >= 0.7 * span_ms):
+            return ms
+        log(f"  torch.profiler: {records} kernel records for {launches} launches, {ms * reps:.4f} ms of "
+            f"device time against {span_ms:.4f} ms of CUDA events (calls queued in {queued_ms:.4f} ms); "
+            "profiling again")
+    raise RuntimeError(f"torch.profiler failed its checks three times ({records} kernel records for "
+                       f"{launches} launches, {ms * reps:.4f} ms against {span_ms:.4f} ms of CUDA events)")
+
+
+def launch_records(events):
+    """(kernel records on the device, kernel launches by the host) among
+    (name, on the device, count) profiler events: the launches are the
+    runtime and driver calls cudaLaunchKernel, cudaLaunchKernelExC,
+    cuLaunchKernel and the like; memsets and copies count on neither side."""
+    records = launches = 0
+    for name, on_device, count in events:
+        if on_device and not name.startswith(("Memset", "Memcpy")):
+            records += count
+        elif not on_device and "LaunchKernel" in name:
+            launches += count
+    return records, launches
 
 
 def corr_level_cost(torch, f1, f2, coords, radius=3):
@@ -1111,7 +1175,383 @@ def host_engine(torch, np, kernels, Droid, DroidConfig, init_params, visualizati
     return dict(bench=bench, cull=cull, row1=row, ok=bench["ok"] and cull["ok"] and row["ok"])
 
 
+# -----------------------------------------------------------------------------
+# phase 9: training
+# -----------------------------------------------------------------------------
+
+# 9b, card against CPU after one grad pass (3 iterations of operator and BA,
+# which amplify one-ulp differences, as in phase 4): the loss within 1e-4
+# relative; each gradient tensor's largest difference within 1e-2 of the
+# larger of its largest entry and 1e-3 of the model's largest entry (the
+# biases ahead of fnet's instance norms have a zero true gradient, and both
+# devices return rounding noise there)
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-2
+# 9c: apps/train.py's defaults (fnet 128, cnet 256, GRU 128, 4 levels of
+# radius 3, crop 384x512, 7 frames, 15 iterations, 24 random edges in 52
+# slots, batch 4) for 3 optimizer steps; --seed 0 draws one restart pass (on
+# step 2, a randomised graph) and both kinds of graph
+TRAIN_ARGV = ["--synthetic", "--steps", "3", "--seed", "0", "--ckpt_every", "1000000"]
+TRAIN_POOL = 4  # clips rendered ahead (the app's default, 256 at 384x512, renders for minutes)
+# 9d-e: overfitting one clip (4 frames at 48x64, batch 2, 4 iterations,
+# lr 1e-3 on a 60-step onecycle), the criterion of tests/test_training.py
+LEARN_STEPS = 30
+LEARN_RATIO = 0.5  # mean loss of the last 3 steps over the first 3
+# 9e: the step after a restore against the uninterrupted one: the loss
+# within 1e-6 relative, each gradient tensor within 1e-3 in 9b's form
+# (cuDNN's backward may sum in its own order). The parameters after the
+# update are reported, not held: AdamW's m/√v turns the rounding noise of
+# a gradient that is zero in exact arithmetic (fnet's biases ahead of its
+# instance norms) into steps of up to the learning rate
+RESUME_LOSS_TOL = 1e-6
+RESUME_GRAD_TOL = 1e-3
+
+
+def corr_backward_cost(torch, f1, f2, coords, radius=3):
+    """Bytes the backward must move (g, f1, f2 and coords read once, df1
+    and df2 written once) and the operations these inputs need: 2·C for
+    df1 and 2·C for df2 per in-map support cell, plus 8 per tap for the
+    support gradient (4 corner products and sums)."""
+    n, p, c = f1.shape
+    rd = 2 * radius + 1
+    nbytes = (n * p * rd * rd * 4 + coords.numel() * 4
+              + 2 * (f1.numel() * f1.element_size() + f2.numel() * f2.element_size()))
+    _, fwd_ops = corr_level_cost(torch, f1, f2, coords, radius)
+    dots = (fwd_ops - 12 * n * p * rd * rd) // (2 * c)
+    return nbytes, 4 * c * dots + 8 * n * p * rd * rd
+
+
+def grid_sample_backward(torch, corr, f1, f2, coords, gout, radius=3):
+    """The library yardstick of the backward: autograd's backward of one
+    F.grid_sample call (bilinear, zeros padding, align_corners=False) that
+    samples the same windows from the level's volume [N·P, 1, H2, W2]: tap
+    (i, j) at x = c_x − r + i, y = c_y − r + j, pixel x at (2x + 1)/W2 − 1.
+    Returns (device ms of the backward, max |forward − corr_level_ref|,
+    max |corr_level_ref|)."""
+    n, p, c = f1.shape
+    h2, w2 = f2.shape[1:3]
+    vol = torch.bmm(f1, f2.reshape(n, h2 * w2, c).transpose(1, 2)).reshape(n * p, 1, h2, w2)
+    vol.requires_grad_()
+    c0 = coords.reshape(n * p, 2) - radius
+    off = torch.arange(2 * radius + 1, device=f1.device, dtype=torch.float32)
+    x = c0[:, 0][:, None, None] + off[None, :, None]  # [N·P, 7(i), 1]
+    y = c0[:, 1][:, None, None] + off[None, None, :]  # [N·P, 1, 7(j)]
+    grid = torch.stack(torch.broadcast_tensors((2 * x + 1) / w2 - 1, (2 * y + 1) / h2 - 1), -1)
+    out = grid_sample(torch, vol, grid.contiguous())
+    with torch.no_grad():
+        ref = corr.corr_level_ref(f1, f2, coords, radius)
+        err = float((out.detach().reshape(n, p, -1) - ref).abs().max())
+        scale = float(ref.abs().max())
+    go = gout.reshape(n * p, 1, 2 * radius + 1, 2 * radius + 1)
+    ms = device_ms(torch, lambda: torch.autograd.grad(out, vol, go, retain_graph=True), reps=3, warm=1)
+    return ms, err, scale
+
+
+def check_backward_kernel(torch, corr, pops, dev, seed: int, N: int = 208, h: int = 48, w: int = 64):
+    """Phase 9a: corr_level_backward (csrc/corr_backward.cu, then df2 =
+    dVᵀ·f1) against autograd through corr_level_ref at the training path's
+    shapes (208 edges = batch 4 x 52 slots, 48x64 down to 6x8, C=128, f32)
+    with iid (timed, with the plain version, the grid_sample yardstick and
+    the bound), smooth and far-out coords; each case runs twice and must
+    repeat bitwise."""
+    g = torch.Generator(device=dev).manual_seed(seed + 9)
+    C = 128
+    fmap1 = torch.randn((N, h, w, C), generator=g, device=dev)
+    fmap2 = torch.randn((N, h, w, C), generator=g, device=dev)
+    cases = []
+    for kind in ("iid", "smooth", "far"):
+        coords = make_coords(torch, pops, kind, N, h, w, g, dev)
+        for lvl, (f1, f2, c) in enumerate(corr.lookup_levels(fmap1, fmap2, coords)):
+            gout = torch.randn((N, f1.shape[1], 49), generator=g, device=dev)
+            refs = corr.corr_level_backward_ref(gout, f1, f2, c)
+            outs = corr.corr_level_backward(gout, f1, f2, c)
+            outs2 = corr.corr_level_backward(gout, f1, f2, c)
+            torch.cuda.synchronize()
+            res = {name: compare(torch, o, o2, r) for name, o, o2, r in zip(("df1", "df2"), outs, outs2, refs)}
+            del refs, outs, outs2
+            case = dict(kind=kind, level=lvl, N=N, P=f1.shape[1], H2=f2.shape[1], W2=f2.shape[2], C=C,
+                        max_abs_err={k: r[0] for k, r in res.items()},
+                        max_abs_ref={k: r[1] for k, r in res.items()},
+                        bitwise_repeat=all(r[3] for r in res.values()),
+                        launches=-(-N // corr.backward_chunk_edges(f1.shape[1], f2.shape[1], f2.shape[2])))
+            case["ok"] = all(r[2] and r[3] and r[0] <= KERNEL_TOL * r[1] for r in res.values())
+            msg = (f"  corr_backward {kind:6s} L{lvl} [{N},{f1.shape[1]},{C}]x[{f2.shape[1]}x{f2.shape[2]}]: "
+                   + ", ".join(f"{k} max_err {r[0]:.3e} (tol {KERNEL_TOL * r[1]:.3e})" for k, r in res.items())
+                   + f", {case['launches']} launches, repeat {'bitwise' if case['bitwise_repeat'] else 'DIFFERS'}")
+            if kind == "iid":
+                case["ms"] = device_ms(torch, lambda: corr.corr_level_backward(gout, f1, f2, c), reps=5)
+                case["plain_ms"] = device_ms(torch, lambda: corr.corr_level_backward_ref(gout, f1, f2, c),
+                                             reps=2, warm=1)
+                case["library_ms"], case["grid_sample_err"], scale = grid_sample_backward(
+                    torch, corr, f1, f2, c, gout)
+                case["grid_sample_ok"] = case["grid_sample_err"] <= KERNEL_TOL * scale
+                nbytes, ops = corr_backward_cost(torch, f1, f2, c)
+                case.update(bytes=nbytes, ops=ops)
+                case["bound_ms"], case["bound_by"] = bound(nbytes, ops, "float32")
+                msg += (f" kernel {case['ms']:.4f} ms plain "
+                        f"{case['plain_ms']:.4f} ms bound "
+                        f"{case['bound_ms']:.4f} ms ({case['bound_by']}), grid_sample backward "
+                        f"{case['library_ms']:.4f} ms (forward max_err {case['grid_sample_err']:.2e})")
+            cases.append(case)
+            log(msg)
+            torch.cuda.empty_cache()
+    return cases
+
+
+def _grads_against(torch, got, want):
+    """(worst ratio, tensor name): max |got − want| of each gradient tensor
+    over the larger of its largest |want| and 1e-3 of the model's largest."""
+    G = max(float(v.abs().max()) for v in want.values())
+    worst = max(((float((got[k].to(v.device) - v).abs().max()) / max(float(v.abs().max()), 1e-3 * G), k)
+                 for k, v in want.items()), default=(0.0, None))
+    return worst
+
+
+def train_card_vs_cpu(torch, np, port, seed: int):
+    """Phase 9b: one grad pass of the trainer on the same seeded batch and
+    weights on the card (the kernels) and on the CPU (the plain versions):
+    a rendered clip, batch 2, 4 frames at 64x96, 3 iterations, a padded
+    randomised graph, per-frame distinct initial poses (as a restart pass
+    starts; with two frames at one pose the flow encoder's first ReLU gates
+    on rounding noise)."""
+    F, H, W, B, iters = 4, 64, 96, 2, 3
+    clip = next(port.SyntheticDataset(n_frames=F, image_size=(H, W), seed=seed, pool=0).clips(B))
+    Ps = port.lie.inv(torch.from_numpy(clip["poses"]))
+    Gs0 = Ps.clone()
+    Gs0[:, 1:] = Ps[:, 1:2]
+    tw = 0.02 * np.random.default_rng(seed).standard_normal((B, F, 6)).astype(np.float32)
+    Gs0 = port.lie.retr(Gs0, torch.from_numpy(tw))
+    bi, bj = port.train_app.neighbour_graph(F)
+    ii, jj, valid = port.train_app.pad_graph(bi[::2], bj[::2], len(bi[::2]) + 2)
+    batch = dict(images=clip["images"], poses=Ps.numpy(), disps=clip["disps"], intrinsics=clip["intrinsics"],
+                 poses_init=Gs0.numpy(), disps_init=np.ones((B, F, H // 8, W // 8), np.float32),
+                 ii=ii, jj=jj, edge_valid=valid)
+    step = port.trainer.make_train_step(port.trainer.TrainConfig(n_frames=F, num_iters=iters), bi, bj)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = port.DroidNet()
+        model.load_state_dict(port.init_params(seed))
+        model.to(torch.device(device))
+        port.kernels.reset_launches()
+        t0 = time.perf_counter()
+        grads, metrics, _ = step.grad(model, batch)
+        torch.cuda.synchronize()
+        runs[device] = dict(grads={k: v.cpu() for k, v in grads.items()},
+                            metrics={k: float(v) for k, v in metrics.items()}, wall_s=time.perf_counter() - t0,
+                            launches=dict(port.kernels.DTYPE_LAUNCHES))
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    loss_err = abs(gpu["metrics"]["loss"] - cpu["metrics"]["loss"]) / abs(cpu["metrics"]["loss"])
+    worst, name = _grads_against(torch, gpu["grads"], cpu["grads"])
+    res = dict(loss_gpu=gpu["metrics"]["loss"], loss_cpu=cpu["metrics"]["loss"], loss_rel_err=loss_err,
+               loss_tol=TRAIN_LOSS_TOL, worst_grad=worst, worst_grad_tensor=name, grad_tol=TRAIN_GRAD_TOL,
+               metric_errs={k: abs(gpu["metrics"][k] - v) for k, v in cpu["metrics"].items()},
+               walls_s={k: r["wall_s"] for k, r in runs.items()}, launches_gpu=gpu["launches"],
+               launches_cpu=cpu["launches"],
+               finite=all(bool(torch.isfinite(v).all()) for r in runs.values() for v in r["grads"].values()))
+    res["ok"] = bool(res["finite"] and loss_err <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL
+                     and gpu["launches"].get("corr_backward_f32", 0) > 0 and not cpu["launches"])
+    log(f"  card vs CPU: {res}")
+    return res
+
+
+def profile_events(torch, prof, out_dir, name: str):
+    """Device ms and launches by kernel from a device-only torch.profiler
+    run (the raw events, as profile_terminate reads them)."""
+    from torch.autograd import DeviceType
+
+    us, calls = {}, {}
+    events = prof.profiler.kineto_results.events()
+    for e in events:
+        if e.device_type() == DeviceType.CUDA:
+            us[e.name()] = us.get(e.name(), 0.0) + e.duration_ns() / 1e3
+            calls[e.name()] = calls.get(e.name(), 0) + 1
+    if not us:
+        raise RuntimeError("torch.profiler recorded no device time")
+    records, launches = launch_records((e.name(), e.device_type() == DeviceType.CUDA, 1) for e in events)
+    ranked = sorted(us, key=lambda k: -us[k])
+    if out_dir is not None:
+        lines = [f"{'device ms':>12}  {'calls':>8}  kernel"]
+        lines += [f"{us[k] / 1e3:12.3f}  {calls[k]:8d}  {k}" for k in ranked[:40]]
+        (out_dir / f"{name}.txt").write_text("\n".join(lines) + "\n")
+
+    def ms(*needles):
+        return sum(v for k, v in us.items() if any(s in k for s in needles)) / 1e3
+
+    # a profile short of kernel records (dropped) reads too little device time
+    return dict(device_ms=sum(us.values()) / 1e3, launches=sum(calls.values()),
+                kernel_records=records, kernel_launches=launches, complete=records >= launches > 0,
+                corr_level_ms=ms("corr_level_f32"), corr_sort_ms=ms("corr_sort"),
+                corr_backward_ms=ms("corr_backward"), gemm_ms=ms("gemm", "sgemm"),
+                fft_conv_ms=ms("cf32cf32", "fft"), conv_ms=ms("conv", "implicit", "wgrad", "dgrad"),
+                top_kernels_ms={k[:60]: us[k] / 1e3 for k in ranked[:12]})
+
+
+def train_at_defaults(torch, np, port, seed: int, out_dir):
+    """Phase 9c: apps/train.py's train loop at its defaults (TRAIN_ARGV) for
+    3 optimizer steps on a SyntheticDataset with a pool of TRAIN_POOL clips:
+    every loss and gradient finite, the launches of corr_level_f32 (4 levels
+    x 15 iterations x passes) and of the backward kernel (15 iterations x
+    passes x its chunks over the 4 levels); the checkpointed operator and
+    BA recompute no lookup. Step walls, the last step's device time under
+    torch.profiler (device activity only), held against two CUDA events
+    around that step (it cannot exceed their span), its busy share against
+    that span and against the warm unprofiled steps' wall per pass (the
+    profiler slows the host), and the peak of allocated memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = port.train_app.parser().parse_args(TRAIN_ARGV)
+    t0 = time.perf_counter()
+    db = port.SyntheticDataset(n_frames=args.n_frames, image_size=tuple(args.crop), seed=seed,
+                               pool=TRAIN_POOL, varied_frac=args.varied_frac)
+    clips = db.clips(args.batch)
+    first = next(clips)  # renders the pool
+    render_s = time.perf_counter() - t0
+
+    class Clips:
+        def clips(self, batch):
+            yield first
+            yield from clips
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    @contextlib.contextmanager
+    def profiled(step):
+        if step < args.steps:
+            yield
+            return
+        torch.cuda.synchronize()
+        with prof:
+            start.record()
+            yield
+            end.record()
+            end.synchronize()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    port.kernels.reset_launches()
+    t0 = time.perf_counter()
+    hist = port.train_app._train(args, Clips(), torch.device("cuda"), log=log, step_context=profiled)
+    wall = time.perf_counter() - t0
+    launches = dict(port.kernels.DTYPE_LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    passes = sum(h["passes"] for h in hist)
+    h, w = args.crop[0] // 8, args.crop[1] // 8
+    n_slots = args.batch * max(len(port.train_app.neighbour_graph(args.n_frames)[0]),
+                               args.edges + 4 * args.n_frames)
+    chunks = sum(-(-n_slots // port.corr.backward_chunk_edges(h * w, h >> l, w >> l)) for l in range(4))
+    res = dict(steps=len(hist), passes=passes, render_s=render_s, wall_s=wall,
+               step_walls_s=[x["wall_s"] for x in hist], losses=[x["metrics"]["loss"] for x in hist],
+               n_valid_edges=[x["n_valid_edges"] for x in hist], launches=launches,
+               expected_corr_level_f32=4 * args.iters * passes,
+               expected_corr_backward=args.iters * passes * chunks, backward_chunks_per_lookup=chunks,
+               peak_allocated_gb=peak_gb, tf32=dict(matmul=torch.backends.cuda.matmul.allow_tf32,
+                                                    cudnn=torch.backends.cudnn.allow_tf32))
+    pr = res["profile"] = profile_events(torch, prof, out_dir, "profile_train_step")
+    pr["profiled_step_wall_ms"] = hist[-1]["wall_s"] * 1e3
+    pr["profiled_step_events_ms"] = start.elapsed_time(end)
+    pr["device_busy_share"] = pr["device_ms"] / pr["profiled_step_events_ms"]
+    # steps 2 .. n-1: warm (cuDNN's first calls are in step 1) and unprofiled
+    warm = hist[1:-1]
+    pr["warm_pass_wall_ms"] = pr["device_busy_share_warm"] = None
+    if warm:
+        pr["warm_pass_wall_ms"] = 1e3 * sum(x["wall_s"] for x in warm) / sum(x["passes"] for x in warm)
+        pr["device_busy_share_warm"] = pr["device_ms"] / hist[-1]["passes"] / pr["warm_pass_wall_ms"]
+    res["finite"] = all(x["grads_finite"] and np.isfinite(list(x["metrics"].values())).all() for x in hist)
+    res["ok"] = bool(res["finite"] and len(hist) == args.steps and passes > len(hist)
+                     and pr["device_ms"] <= pr["profiled_step_events_ms"]
+                     and launches.get("corr_level_f32") == res["expected_corr_level_f32"]
+                     and launches.get("corr_backward_f32") == res["expected_corr_backward"]
+                     and not launches.get("corr_level_bf16"))
+    log(f"  defaults: {res}")
+    return res
+
+
+def train_learns_and_resumes(torch, np, port, seed: int, out_dir):
+    """Phase 9d: LEARN_STEPS steps overfitting one rendered clip must cut
+    the loss by LEARN_RATIO (mean of the last 3 against the first 3);
+    9e: the train state saved before the last step, restored into a fresh
+    model and optimizer, is the saved one bit for bit, and its step's loss
+    and gradients match the uninterrupted step's within RESUME_LOSS_TOL and
+    RESUME_GRAD_TOL."""
+    import tempfile
+
+    F, H, W, B = 4, 48, 64, 2
+    clip = next(port.SyntheticDataset(n_frames=F, image_size=(H, W), seed=3, pool=0).clips(B))
+    Ps = port.lie.inv(torch.from_numpy(clip["poses"])).numpy()
+    Gs0 = Ps.copy()
+    Gs0[:, 1:] = Ps[:, 1:2]
+    batch = dict(images=clip["images"], poses=Ps, disps=clip["disps"], intrinsics=clip["intrinsics"],
+                 poses_init=Gs0, disps_init=np.ones((B, F, H // 8, W // 8), np.float32))
+    cfg = port.trainer.TrainConfig(lr=1e-3, steps=2 * LEARN_STEPS, n_frames=F, num_iters=4, pct_start=0.2)
+    ii, jj = port.train_app.neighbour_graph(F)
+    step = port.trainer.make_train_step(cfg, ii, jj)
+
+    def fresh():
+        model = port.DroidNet()
+        model.load_state_dict(port.init_params(seed))
+        return port.trainer.init_state(model.to(torch.device("cuda")), cfg)
+
+    state, losses = fresh(), []
+    t0 = time.perf_counter()
+    for _ in range(LEARN_STEPS - 1):
+        state, m, _ = step(state, batch)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    learn_s = time.perf_counter() - t0
+    tmp = Path(tempfile.mkdtemp()) if out_dir is None else out_dir
+    path = str(tmp / "train_state.pt")
+    port.checkpoints.save_train_state(path, state)
+    lr = state["optimizer"].schedule(state["optimizer"].count)
+    restored = port.checkpoints.restore_train_state(path, fresh())
+    params = [(a, b) for a, b in zip(state["model"].state_dict().values(), restored["model"].state_dict().values())]
+    same_params = all(torch.equal(a, b) for a, b in params)
+    sa, sb = state["optimizer"].state_dict(), restored["optimizer"].state_dict()
+    same_opt = sa["count"] == sb["count"] and all(
+        torch.equal(sa["adamw"]["state"][k][n], sb["adamw"]["state"][k][n])
+        for k in sa["adamw"]["state"] for n in ("exp_avg", "exp_avg_sq", "step"))
+    grads_a, m_a, _ = step.grad(state["model"], batch)
+    grads_b, m_b, _ = step.grad(restored["model"], batch)
+    worst, name = _grads_against(torch, grads_b, grads_a)
+    bitwise_grads = all(torch.equal(grads_a[k], grads_b[k]) for k in grads_a)
+    before = [a.clone() for a, _ in params]
+    step.apply(state, grads_a)
+    step.apply(restored, grads_b)
+    losses.append(float(m_a["loss"]))
+    moved = max(float((a - p0).abs().max()) for (a, _), p0 in zip(params, before))
+    param_diff = max(float((a - b).abs().max()) for a, b in params)
+    learn = dict(losses=losses, learn_s=learn_s, ratio=float(np.mean(losses[-3:]) / np.mean(losses[:3])),
+                 criterion=LEARN_RATIO)
+    learn["ok"] = bool(np.isfinite(losses).all() and learn["ratio"] <= LEARN_RATIO)
+    resume = dict(same_params=same_params, same_optimizer_state=same_opt, same_step=restored["step"] == state["step"],
+                  loss_a=float(m_a["loss"]), loss_b=float(m_b["loss"]),
+                  loss_rel_err=abs(float(m_a["loss"]) - float(m_b["loss"])) / abs(float(m_a["loss"])),
+                  worst_grad=worst, worst_grad_tensor=name, grad_tol=RESUME_GRAD_TOL, bitwise_grads=bitwise_grads,
+                  lr=lr, largest_update=moved, param_diff_after_update=param_diff,
+                  param_diff_in_lr=param_diff / lr)
+    resume["ok"] = bool(same_params and same_opt and resume["same_step"]
+                        and resume["loss_rel_err"] <= RESUME_LOSS_TOL and worst <= RESUME_GRAD_TOL)
+    log(f"  learns: ratio {learn['ratio']:.4f} (criterion <= {LEARN_RATIO}) in {learn_s:.1f} s; "
+        f"losses {[round(x, 4) for x in losses]}")
+    log(f"  resume: {resume}")
+    return learn, resume
+
+
+def training(torch, np, port, seed: int, out_dir):
+    """Phase 9: the training path (9b-9e; 9a runs beside the other kernel
+    checks, before phase 4)."""
+    log("phase 9b: one grad pass, card vs CPU")
+    vs_cpu = train_card_vs_cpu(torch, np, port, seed)
+    log("phase 9c: apps/train.py at its defaults, 3 optimizer steps")
+    defaults = train_at_defaults(torch, np, port, seed, out_dir)
+    log(f"phase 9d-e: {LEARN_STEPS} steps on one clip, then a save, restore and step")
+    learn, resume = train_learns_and_resumes(torch, np, port, seed, out_dir)
+    return dict(card_vs_cpu=vs_cpu, defaults=defaults, learns=learn, resume=resume)
+
+
 def main(argv=None) -> int:
+    global LOG_PATH
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
     ap.add_argument("--out", type=Path, default=None, help="directory for the detail files")
@@ -1124,13 +1564,21 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this needs one CUDA device",
               file=sys.stderr)
         return 1
+    if args.out is not None:
+        args.out.mkdir(parents=True, exist_ok=True)
+        LOG_PATH = args.out / "chip_smoke.log"
+        LOG_PATH.write_text("")
     sys.path.insert(0, str(ROOT))
+    from types import SimpleNamespace
+
     from droid_slam_tpu_torch.apps import evaluate
-    from droid_slam_tpu_torch.data.synthetic import render_sequence
-    from droid_slam_tpu_torch.models.droid_net import init_params
-    from droid_slam_tpu_torch.ops import corr, kernels, segment
+    from droid_slam_tpu_torch.apps import train as train_app
+    from droid_slam_tpu_torch.data.synthetic import SyntheticDataset, render_sequence
+    from droid_slam_tpu_torch.models.droid_net import DroidNet, init_params
+    from droid_slam_tpu_torch.ops import corr, kernels, lie, segment
     from droid_slam_tpu_torch.ops import projective as pops
     from droid_slam_tpu_torch.runtime import Droid, DroidConfig
+    from droid_slam_tpu_torch.train import checkpoints, trainer
     from droid_slam_tpu_torch.utils import visualization
 
     dev = torch.device("cuda")
@@ -1156,7 +1604,7 @@ def main(argv=None) -> int:
                 func = line.split()[-1].strip("'")
             elif "registers" in line or "spill" in line or "smem" in line:
                 # the f32 functions by name (the bf16 ones as before, by line)
-                tag = f" {func}" if is_f32_function(func) else ""
+                tag = f" {func}" if is_f32_function(func) or "corr_backward" in func else ""
                 log(f"  {name}:{tag} {line.strip()}")
     log(f"  built {sorted(build_logs) or 'nothing (cached)'} in {build_s:.1f} s")
     sass = kernels.sass_counts()
@@ -1176,12 +1624,17 @@ def main(argv=None) -> int:
     log("phase 3c: order-fixed segment sums vs index_add_ at the paths' shapes")
     seg_cases = check_segment_sum(torch, segment, dev, args.seed)
 
+    # with the other kernel checks: late in the run torch.profiler has come
+    # back with some or none of the device events of these launches
+    log("phase 9a: corr_backward vs autograd through corr_level_ref at the training path's shapes")
+    t0 = time.perf_counter()
+    bwd_cases = check_backward_kernel(torch, corr, pops, dev, args.seed)
+    bwd_wall = time.perf_counter() - t0
+
     log("phase 4: small replay + terminate, GPU port vs CPU port")
     small = small_replay(torch, np, Droid, DroidConfig, init_params, args.seed)
 
     log("phase 5: main path, Droid.track at the bench configuration")
-    if args.out is not None:
-        args.out.mkdir(parents=True, exist_ok=True)
     main_res, droid = main_path(torch, np, kernels, Droid, DroidConfig, init_params, args.seed, args.out)
 
     log("phase 6: terminate path, Droid.terminate() at the bench configuration")
@@ -1199,6 +1652,16 @@ def main(argv=None) -> int:
                        render_sequence, args.seed, args.out, main_res["profile"]["device_busy_share"],
                        proto["rows"][0]["keyframes"])
     host["wall_s"] = time.perf_counter() - t0
+
+    log("phase 9: training")
+    t0 = time.perf_counter()
+    port = SimpleNamespace(corr=corr, pops=pops, kernels=kernels, lie=lie, trainer=trainer,
+                           checkpoints=checkpoints, train_app=train_app, SyntheticDataset=SyntheticDataset,
+                           DroidNet=DroidNet, init_params=init_params)
+    train = training(torch, np, port, args.seed, args.out)
+    train["wall_s"] = time.perf_counter() - t0 + bwd_wall
+    train["backward_cases"] = bwd_cases
+    log(f"  phase 9 wall: {train['wall_s']:.1f} s (9a {bwd_wall:.1f} s)")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1278,6 +1741,24 @@ def main(argv=None) -> int:
             bound_by="bytes" if k_bytes >= k_ops else "operations",
             library_ms=None,
         )))
+    # the backward of the lookup: one training-path lookup's backward, the 4
+    # levels at 208 edges, iid, f32, with phase 9c's launches
+    bwd_iid = [c for c in train["backward_cases"] if c["kind"] == "iid"]
+    b_bytes = sum(c["bytes"] / MEM_BYTES_PER_S for c in bwd_iid)
+    b_ops = sum(c["ops"] / PEAK_OPS_PER_S["float32"] for c in bwd_iid)
+    kernel_rows.append(share(dict(
+        name="corr_backward",
+        route="cuda",
+        source="droid_slam_tpu_torch/csrc/corr_backward.cu",
+        replaces="droid_slam_tpu/ops/corr.py:135 (no Pallas counterpart: XLA autodiff of corr_index)",
+        launches=train["defaults"]["launches"].get("corr_backward_f32", 0),
+        max_abs_err=max(max(c["max_abs_err"].values()) for c in train["backward_cases"]),
+        ms=sum(c["ms"] for c in bwd_iid),
+        plain_ms=sum(c["plain_ms"] for c in bwd_iid),
+        bound_ms=sum(c["bound_ms"] for c in bwd_iid),
+        bound_by="bytes" if b_bytes >= b_ops else "operations",
+        library_ms=sum(c["library_ms"] for c in bwd_iid),
+    )))
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(dict(
             device=torch.cuda.get_device_name(0), nvidia_smi=smi, torch=torch.__version__,
@@ -1285,7 +1766,7 @@ def main(argv=None) -> int:
             build_s=build_s, sass=sass, cases=cases, split_cases=split_cases, segment_cases=seg_cases,
             small_replay=small,
             main_path=main_res, terminate_path=term_res, synthetic_protocol=proto, host_engine=host,
-            kernels=kernel_rows,
+            training=train, kernels=kernel_rows,
         ), indent=1))
 
     failed = [f"{f}: no tensor-core instructions" for f, k in tile_mma.items() if k == 0]
@@ -1329,6 +1810,15 @@ def main(argv=None) -> int:
         ("8a tracking", host["bench"]["tracking_ok"]), ("8a terminate", host["bench"]["terminate"]["ok"]),
         ("8a map", host["bench"]["map"]["ok"]), ("8b cull replay", host["cull"]["ok"]),
         ("8c row 1", host["row1"]["ok"])) if not ok]
+    failed += [f"corr_backward {c['kind']} L{c['level']}" for c in train["backward_cases"] if not c["ok"]]
+    failed += [f"grid_sample backward yardstick L{c['level']}: forward max_err {c['grid_sample_err']:.3e}"
+               for c in bwd_iid if not c["grid_sample_ok"]]
+    failed += [f"corr_backward_kernel: {k} tensor-core instructions" for f, k in
+               ((f, sum(c.values())) for f, c in sass.items() if "corr_backward_kernel" in f) if k]
+    if not any("corr_backward_kernel" in f for f in sass):
+        failed.append("corr_backward_kernel missing from the SASS")
+    failed += [f"training {part}" for part in ("card_vs_cpu", "defaults", "learns", "resume")
+               if not train[part]["ok"]]
     if failed:
         print("chip_smoke: FAILED: " + "; ".join(failed), file=sys.stderr)
         return 1
@@ -1358,6 +1848,21 @@ def main(argv=None) -> int:
         f"masks agree {hb['map']['mask_agreement']:.5f}; cull replay {host['cull']['keyframes']} keyframes "
         f"on all three runs; row 1 ATE {hrow['ate']:.4f}, keyframes {hrow['keyframes']} "
         f"(fused {row1['keyframes']})")
+    td, tl = train["defaults"], train["learns"]
+    log(f"training (phase 9, {train['wall_s']:.1f} s): corr_backward {kernel_rows[-1]['ms']:.4f} ms per "
+        f"4-level backward at 208 edges (plain {kernel_rows[-1]['plain_ms']:.4f}, bound "
+        f"{kernel_rows[-1]['bound_ms']:.4f}, grid_sample backward {kernel_rows[-1]['library_ms']:.4f}); "
+        f"card vs CPU loss rel err {train['card_vs_cpu']['loss_rel_err']:.2e}, worst gradient "
+        f"{train['card_vs_cpu']['worst_grad']:.2e}; defaults: {td['passes']} passes in {td['steps']} steps, "
+        f"step walls {', '.join(f'{x:.2f}' for x in td['step_walls_s'])} s, profiled step "
+        f"{td['profile']['device_ms']:.0f} ms of device time in {td['profile']['profiled_step_events_ms']:.0f} ms "
+        f"of CUDA events (busy {td['profile']['device_busy_share']:.3f}; "
+        f"{td['profile']['device_busy_share_warm'] or float('nan'):.3f} of a warm unprofiled pass; "
+        f"{td['profile']['kernel_records']} kernel records for {td['profile']['kernel_launches']} launches), "
+        f"peak {td['peak_allocated_gb']:.2f} GB, launches corr_level_f32 "
+        f"{td['launches'].get('corr_level_f32')} corr_backward {td['launches'].get('corr_backward_f32')}; "
+        f"learns: loss {tl['losses'][0]:.3f} -> {tl['losses'][-1]:.3f} (ratio {tl['ratio']:.3f}); "
+        f"resume: bitwise state, step loss rel err {train['resume']['loss_rel_err']:.1e}")
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,6 +4,8 @@
 Counterpart of the JAX package's ``models/update.py``, with the same module
 names (so parameters carry across by name) and the same channel orders: GRU
 input concat [ctx, corr, flow], upsample-mask channels k*64 + i*8 + j.
+The heads' ``delta``, ``weight`` and ``eta`` pass through :func:`grad_clip`
+(the identity forward), as in the JAX package.
 Public tensors are NHWC; the convolutions run NCHW inside. The
 computation dtype is the dtype of the module's parameters (``.to(dtype)``);
 delta, weight and eta come back float32.
@@ -20,6 +22,28 @@ from torch import nn
 from ..ops.segment import segment_sum
 
 Tensor = torch.Tensor
+
+GRAD_CLIP = 0.01
+
+
+class GradClip(torch.autograd.Function):
+    """Identity forward; the backward zeroes gradient entries with
+    |g| > 0.01 or NaN (reference modules/clipping.py:7-17, the JAX
+    package's ``models/update.py::grad_clip``): the stabiliser that lets
+    gradients flow back through the unrolled BA iterations."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor) -> Tensor:
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g: Tensor) -> Tensor:
+        bad = (g.abs() > GRAD_CLIP) | torch.isnan(g)
+        return torch.where(bad, torch.zeros_like(g), g)
+
+
+def grad_clip(x: Tensor) -> Tensor:
+    return GradClip.apply(x)
 
 
 def _conv(cin: int, cout: int, k: int) -> nn.Conv2d:
@@ -113,7 +137,7 @@ class GraphAgg(nn.Module):
         net = mean.to(net.dtype).reshape(num_frames, ch, ht, wd)
 
         net = F.relu(self.conv2(net))
-        eta = 0.01 * F.softplus(self.eta(net).float())[:, 0]  # [F, H, W]
+        eta = 0.01 * F.softplus(grad_clip(self.eta(net).float()))[:, 0]  # [F, H, W]
         upmask = _nhwc(self.upmask(net))  # [F, H, W, 576]
         return eta, upmask
 
@@ -153,8 +177,8 @@ class UpdateModule(nn.Module):
         flow = F.relu(self.flow_enc2(F.relu(self.flow_enc1(flow))))
         net = self.gru(net, torch.cat([inp, corr, flow], dim=1))
 
-        delta = self.delta2(F.relu(self.delta1(net))).float()
-        weight = torch.sigmoid(self.weight2(F.relu(self.weight1(net))).float())
+        delta = grad_clip(self.delta2(F.relu(self.delta1(net))).float())
+        weight = torch.sigmoid(grad_clip(self.weight2(F.relu(self.weight1(net))).float()))
         outs = (_nhwc(net), _nhwc(delta), _nhwc(weight))
         if ii is None:
             return outs

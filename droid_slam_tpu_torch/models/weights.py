@@ -1,6 +1,6 @@
 """Parameters for the port's :class:`..models.droid_net.DroidNet`: from the
-JAX package's parameter trees and files, and from the reference's
-``droid.pth``.
+JAX package's parameter trees and files, from the reference's
+``droid.pth``, and from the port's own training checkpoints.
 
 The JAX package keeps DroidNet parameters as ``{'params': {'fnet', 'cnet',
 'update'}}`` with flax conv kernels in HWIO, and saves them as flax msgpack
@@ -25,6 +25,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from .droid_net import DroidNet
 from .msgpack_io import unpackb
 
 
@@ -127,8 +128,13 @@ def load_reference_checkpoint(path: str) -> Dict[str, torch.Tensor]:
 
 
 def load_weights(path: str) -> Dict[str, torch.Tensor]:
-    """A weights file → a state dict for :class:`DroidNet`: a reference
-    ``.pth`` checkpoint, else a flax msgpack file of the JAX package."""
-    if path.endswith(".pth"):
-        return load_reference_checkpoint(path)
+    """A weights file → a state dict for :class:`DroidNet`: a ``.pth`` or
+    ``.pt`` file holding the port's own state dict (the parameter
+    checkpoints of ``train/checkpoints.py``) or a reference checkpoint, else
+    a flax msgpack file of the JAX package."""
+    if path.endswith((".pth", ".pt")):
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        if set(state) == set(DroidNet().state_dict()):
+            return {k: torch.as_tensor(v).to(torch.float32).contiguous() for k, v in state.items()}
+        return state_dict_from_reference(state)
     return params_from_jax(load_params(path))

@@ -16,6 +16,10 @@ iterations:
 The damped solve is an f32 Cholesky plus one refinement step, and a failed
 factorisation yields a zero update (droid.cpp:568-578). Poses [t0, t1) are
 optimised, poses below t0 held fixed.
+
+The training path's differentiable BA (:func:`bundle_adjust`, over
+:func:`schur_solve`) is batched over a leading dimension, where the JAX
+package vmaps; :func:`cholesky_solve` carries the analytic backward.
 """
 
 from __future__ import annotations
@@ -32,15 +36,34 @@ from .segment import segment_sum
 Tensor = torch.Tensor
 
 
+class _CholeskySolve(torch.autograd.Function):
+    """x = H⁻¹ b with the analytic backward of the solve (geom/chol.py:21-30):
+    db = H⁻¹ g, dH = −x dbᵀ. Where the factorisation fails, x, db and dH
+    are zero."""
+
+    @staticmethod
+    def forward(ctx, H: Tensor, b: Tensor) -> Tensor:
+        H = 0.5 * (H + H.transpose(-1, -2))
+        L, info = torch.linalg.cholesky_ex(H)
+        x = torch.cholesky_solve(b, L)
+        ok = (info == 0)[..., None, None] & torch.isfinite(x).all(dim=(-2, -1), keepdim=True)
+        x = torch.where(ok, x, torch.zeros_like(x))
+        ctx.save_for_backward(L, x, ok)
+        return x
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        L, x, ok = ctx.saved_tensors
+        db = torch.where(ok, torch.cholesky_solve(g, L), torch.zeros_like(g))
+        return -torch.matmul(x, db.transpose(-1, -2)), db
+
+
 def cholesky_solve(H: Tensor, b: Tensor) -> Tensor:
     """Solve H x = b for SPD H [..., n, n], b [..., n, k]. Returns zeros
-    where the factorisation fails (geom/chol.py:5-19). H is symmetrised
-    first, as JAX's Cholesky does."""
-    H = 0.5 * (H + H.transpose(-1, -2))
-    L, info = torch.linalg.cholesky_ex(H)
-    x = torch.cholesky_solve(b, L)
-    ok = (info == 0)[..., None, None] & torch.isfinite(x).all(dim=(-2, -1), keepdim=True)
-    return torch.where(ok, x, torch.zeros_like(x))
+    where the factorisation fails (geom/chol.py:5-19), with zero gradients
+    there too. H is symmetrised first, as JAX's Cholesky does; the backward
+    is the solve's analytic one (``ops/ba.py:57-85`` of the JAX package)."""
+    return _CholeskySolve.apply(H, b)
 
 
 class EdgeBlocks(NamedTuple):
@@ -323,6 +346,129 @@ def ba_iteration_dense_window(
     poses = lie.retr(poses, _place_rows(dx6.reshape(Pw, 6), t0, F))
     disps = disps + _place_rows(dz, kf0, F).reshape(F, ht, wd)
     return poses, disps
+
+
+# -----------------------------------------------------------------------------
+# training-path BA (differentiable, batched; geom/ba.py)
+# -----------------------------------------------------------------------------
+
+
+def _scatter_mat_batched(blocks: Tensor, b: Tensor, r: Tensor, c: Tensor, B: int, n: int,
+                         m: int) -> Tensor:
+    """Scatter-add [K, ...] blocks into [B, n, m, ...] at (b, r, c), dropping
+    out-of-range (r, c): :func:`_scatter_mat` per batch element."""
+    ok = (r >= 0) & (c >= 0) & (r < n) & (c < m)
+    flat = _scatter_rows(blocks, (b * n + r) * m + c, ok, B * n * m)
+    return flat.reshape((B, n, m) + blocks.shape[1:])
+
+
+def _scatter_vec_batched(blocks: Tensor, b: Tensor, r: Tensor, B: int, n: int) -> Tensor:
+    ok = (r >= 0) & (r < n)
+    return _scatter_rows(blocks, b * n + r, ok, B * n).reshape((B, n) + blocks.shape[1:])
+
+
+def schur_solve(H: Tensor, E: Tensor, C: Tensor, v: Tensor, w: Tensor, ep: float = 0.1,
+                lm: float = 1e-4) -> Tuple[Tensor, Tensor]:
+    """Dense Schur-complement solve (geom/chol.py:46-73), batched over
+    leading dims.
+
+    H [..., P, P, 6, 6]; E [..., P, M, 6, HW]; C, w [..., M, HW]; v [..., P, 6].
+    Returns (dx [..., P, 6], dz [..., M, HW]).
+    """
+    P = H.shape[-4]
+    M, HW = C.shape[-2:]
+    lead = H.shape[:-4]
+    Hm = H.transpose(-3, -2).reshape(lead + (P * 6, P * 6))
+    Em = E.transpose(-3, -2).reshape(lead + (P * 6, M * HW))
+    Q = (1.0 / C).reshape(lead + (1, M * HW))
+
+    eye = torch.eye(P * 6, dtype=Hm.dtype, device=Hm.device)
+    Hm = Hm + (ep + lm * Hm) * eye
+
+    vm = v.reshape(lead + (P * 6, 1))
+    wm = w.reshape(lead + (M * HW, 1))
+
+    Qc = Q.transpose(-1, -2)  # [..., M·HW, 1]
+    S = Hm - torch.matmul(Em, Qc * Em.transpose(-1, -2))
+    rhs = vm - torch.matmul(Em, Qc * wm)
+
+    dx = cholesky_solve(S, rhs)
+    dz = Qc * (wm - torch.matmul(Em.transpose(-1, -2), dx))
+    return dx.reshape(lead + (P, 6)), dz.reshape(lead + (M, HW))
+
+
+def bundle_adjust(
+    target: Tensor,
+    weight: Tensor,
+    eta: Tensor,
+    poses: Tensor,
+    disps: Tensor,
+    intrinsics: Tensor,
+    ii: Tensor,
+    jj: Tensor,
+    fixedp: int = 1,
+    ep: float = 0.1,
+    lm: float = 1e-4,
+    motion_only: bool = False,
+    min_depth: float = pops.MIN_DEPTH,
+) -> Tuple[Tensor, Tensor]:
+    """One differentiable DBA step over frames [fixedp, F) of each batch
+    element (geom/ba.py:31-106), batched over the leading dim B where the
+    JAX package vmaps ``ops/ba.py::bundle_adjust``.
+
+    target/weight [B, N, H, W, 2]; eta [B, F, H, W] (damping of every frame:
+    frames without edges keep their depths, their Schur rows being zero);
+    poses [B, F, 7]; disps [B, F, H, W]; intrinsics [B, F, 4]; ii/jj [N]
+    int64, one graph for the batch. All F frames are depth columns (a
+    static shape; columns of frames without edges are zero). With
+    ``motion_only`` only the poses move.
+    """
+    B, F = poses.shape[:2]
+    N = ii.shape[0]
+    ht, wd = disps.shape[-2:]
+    hw = ht * wd
+    dev = poses.device
+    frame0 = torch.arange(B, device=dev)[:, None] * F
+    blocks = build_edge_blocks(
+        target.reshape((B * N,) + target.shape[2:]), weight.reshape((B * N,) + weight.shape[2:]),
+        poses.reshape(B * F, 7), disps.reshape(B * F, ht, wd), intrinsics.reshape(B * F, 4),
+        (frame0 + ii).reshape(-1), (frame0 + jj).reshape(-1), min_depth=min_depth,
+    )
+
+    P = F - fixedp
+    b = torch.arange(B, device=dev).repeat_interleave(N)
+    ii_b, jj_b = ii.repeat(B), jj.repeat(B)
+    ii_r, jj_r = ii_b - fixedp, jj_b - fixedp
+
+    H = (
+        _scatter_mat_batched(blocks.Hii, b, ii_r, ii_r, B, P, P)
+        + _scatter_mat_batched(blocks.Hij, b, ii_r, jj_r, B, P, P)
+        + _scatter_mat_batched(blocks.Hji, b, jj_r, ii_r, B, P, P)
+        + _scatter_mat_batched(blocks.Hjj, b, jj_r, jj_r, B, P, P)
+    )
+    v = _scatter_vec_batched(blocks.vi, b, ii_r, B, P) + _scatter_vec_batched(blocks.vj, b, jj_r, B, P)
+    fixed = poses.new_zeros((B, fixedp, 6))
+
+    if motion_only:
+        Hm = H.transpose(-3, -2).reshape(B, P * 6, P * 6)
+        eye = torch.eye(P * 6, dtype=Hm.dtype, device=dev)
+        Hm = Hm + (ep + lm * Hm) * eye
+        dx = cholesky_solve(Hm, v.reshape(B, P * 6, 1)).reshape(B, P, 6)
+        return lie.retr(poses, torch.cat([fixed, dx], dim=1)), disps
+
+    # depth columns over all frames
+    E = (_scatter_mat_batched(blocks.Ei, b, ii_r, ii_b, B, P, F)
+         + _scatter_mat_batched(blocks.Ej, b, jj_r, ii_b, B, P, F))
+    C = _scatter_vec_batched(blocks.Ck, b, ii_b, B, F)
+    w = _scatter_vec_batched(blocks.wk, b, ii_b, B, F)
+    C = C + eta.reshape(B, F, hw) + 1e-7
+
+    dx, dz = schur_solve(H, E, C, v, w, ep=ep, lm=lm)
+
+    poses = lie.retr(poses, torch.cat([fixed, dx], dim=1))
+    disps = disps + dz.reshape(B, F, ht, wd)
+    disps = torch.where(disps > 10.0, torch.zeros_like(disps), disps)
+    return poses, disps.clamp(min=0.0)
 
 
 # -----------------------------------------------------------------------------

@@ -9,11 +9,15 @@ outside the map are 0.
 Two formulations of the JAX package's three (its volume mode, the
 all-pairs volume pooled over the target dims, computes the fused lookup's
 function, ``droid_slam_tpu/ops/corr.py:186-201``; the port uses the fused
-lookup where the JAX package uses the volume):
+lookup where the JAX package uses the volume, in training too):
 
 * fused lookup (:func:`corr_lookup` → :func:`corr_level`): both tracking
   engines, the motion probe and the trajectory filler. On a CUDA tensor
   :func:`corr_level` launches ``csrc/corr_level.cu``.
+  :class:`CorrPyramid` → :class:`CorrLevel` is its differentiable form, for
+  the training unroll: forward :func:`corr_level`, backward
+  :func:`corr_level_backward`, which launches ``csrc/corr_backward.cu`` on
+  a CUDA tensor.
 * split lookup (:class:`AltCorr` → :func:`corr_level_split`): the global
   backend. Stage A (:func:`corr_slab`, ``csrc/corr_split.cu``) writes the
   8 volume rows of each pixel's window support across the full width;
@@ -104,6 +108,11 @@ def _window_sample(vol: Tensor, coords: Tensor, radius: int) -> Tensor:
 # -----------------------------------------------------------------------------
 
 
+def _sum_dtype(t: Tensor) -> torch.dtype:
+    """f32 for bf16 and f32 features; float64 stays (the gradient checks)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def corr_level_ref(f1: Tensor, f2: Tensor, coords: Tensor, radius: int = 3) -> Tensor:
     """Plain version of one level: per-edge correlation volume (a batched
     f32 matmul) followed by a gather of the (2r+2)² integer support and the
@@ -115,7 +124,8 @@ def corr_level_ref(f1: Tensor, f2: Tensor, coords: Tensor, radius: int = 3) -> T
     """
     n, p, c = f1.shape
     h2, w2 = f2.shape[1:3]
-    vol = torch.bmm(f1.float(), f2.float().reshape(n, h2 * w2, c).transpose(1, 2))
+    dt = _sum_dtype(f1)
+    vol = torch.bmm(f1.to(dt), f2.to(dt).reshape(n, h2 * w2, c).transpose(1, 2))
     out = _window_sample(vol.reshape(n * p, h2, w2), coords.reshape(n * p, 2), radius)
     return out.reshape(n, p, -1)
 
@@ -451,18 +461,25 @@ class AltCorr:
 # -----------------------------------------------------------------------------
 
 
+def _target_levels(fmap2: Tensor, num_levels: int):
+    """The target features of each level: fmap2 scaled by 1/4, then
+    average-pooled per level, each contiguous [N, H/2^l, W/2^l, C]."""
+    f2 = fmap2 * 0.25
+    for i in range(num_levels):
+        if i > 0:
+            f2 = avg_pool2x2(f2.movedim(-1, 1)).movedim(1, -1)
+        yield f2.contiguous()
+
+
 def lookup_levels(fmap1: Tensor, fmap2: Tensor, coords: Tensor, num_levels: int = 4):
     """The per-level inputs of :func:`corr_level` for one lookup: yields
     (f1 [N, P, C], f2 [N, H/2^l, W/2^l, C], coords [N, P, 2] / 2^l) with
     the feature maps scaled by 1/4 and f2 average-pooled per level."""
     n, h1, w1, c = fmap1.shape
     f1 = (fmap1 * 0.25).reshape(n, h1 * w1, c).contiguous()
-    f2 = fmap2 * 0.25
     cflat = coords.float().reshape(n, h1 * w1, 2).contiguous()
-    for i in range(num_levels):
-        if i > 0:
-            f2 = avg_pool2x2(f2.movedim(-1, 1)).movedim(1, -1)
-        yield f1, f2.contiguous(), cflat / (2.0**i)
+    for i, f2 in enumerate(_target_levels(fmap2, num_levels)):
+        yield f1, f2, cflat / (2.0**i)
 
 
 def corr_lookup(
@@ -485,3 +502,130 @@ def corr_lookup(
         for f1, f2, c in lookup_levels(fmap1, fmap2, coords, num_levels)
     ]
     return torch.cat(out, dim=-1).reshape(n, h1, w1, -1)
+
+
+# -----------------------------------------------------------------------------
+# the differentiable lookup (training)
+# -----------------------------------------------------------------------------
+
+# the most bytes of the dense volume gradient dV that one launch of the
+# backward kernel fills: corr_level_backward cuts the edges into chunks
+BACKWARD_DV_BYTES = 1 << 31
+
+
+def backward_chunk_edges(p: int, h2: int, w2: int) -> int:
+    """Edges per launch of the backward kernel at P source pixels and an
+    H2 x W2 map: as many as fill :data:`BACKWARD_DV_BYTES` of dV, at least
+    one, at most 65535 (the grid's limit)."""
+    return max(1, min(65535, BACKWARD_DV_BYTES // max(1, p * h2 * w2 * 4)))
+
+
+def corr_level_backward_ref(g: Tensor, f1: Tensor, f2: Tensor, coords: Tensor,
+                            radius: int = 3) -> Tuple[Tensor, Tensor]:
+    """Plain version of the backward of :func:`corr_level_ref`: autograd
+    through it. g [N, P, (2r+1)²] f32 → (df1 [N, P, C], df2 [N, H2, W2, C])
+    f32; the coords get no gradient."""
+    with torch.enable_grad():
+        a = f1.detach().to(_sum_dtype(f1)).requires_grad_()
+        b = f2.detach().to(_sum_dtype(f2)).requires_grad_()
+        out = corr_level_ref(a, b, coords.detach(), radius)
+        if not out.requires_grad:  # an empty map: the taps are constant zeros
+            return torch.zeros_like(a), torch.zeros_like(b)
+        return torch.autograd.grad(out, (a, b), g)
+
+
+def corr_level_backward(g: Tensor, f1: Tensor, f2: Tensor, coords: Tensor,
+                        radius: int = 3) -> Tuple[Tensor, Tensor]:
+    """Backward of one level of the lookup (contract of
+    :func:`corr_level_backward_ref`).
+
+    A CUDA tensor goes to ``csrc/corr_backward.cu`` (f32 g, features and
+    coords, contiguous, C a multiple of 32 up to 256, radius 3): per chunk
+    of :func:`backward_chunk_edges` edges one launch writes df1 and each
+    pixel's row of the dense volume gradient dV [n, P, H2·W2], then df2 =
+    dVᵀ·f1 is one batched product. Nothing is summed with atomics, so equal
+    inputs give equal bits. A CPU tensor goes to the plain version.
+    """
+    if g.device.type == "cpu":
+        return corr_level_backward_ref(g, f1, f2, coords, radius)
+    _check_cuda("corr_backward", g, f1, f2, coords)
+    if any(t.dtype != torch.float32 for t in (g, f1, f2, coords)):
+        raise TypeError("corr_backward: g, f1, f2 and coords must be f32, got "
+                        f"{g.dtype}/{f1.dtype}/{f2.dtype}/{coords.dtype}")
+    n, p, c = f1.shape
+    h2, w2 = f2.shape[1:3]
+    rd = 2 * radius + 1
+    if (f2.dim() != 4 or f2.shape[0] != n or f2.shape[3] != c or tuple(coords.shape) != (n, p, 2)
+            or tuple(g.shape) != (n, p, rd * rd)):
+        raise ValueError(f"corr_backward: shape mismatch g {tuple(g.shape)}, f1 {tuple(f1.shape)}, "
+                         f"f2 {tuple(f2.shape)}, coords {tuple(coords.shape)}")
+    if c % 32 or not 0 < c <= 256 or radius != 3:
+        raise ValueError(f"corr_backward: kernel takes C a multiple of 32 up to 256 and radius 3, "
+                         f"got {c}, {radius}")
+    if n == 0 or p == 0 or h2 == 0 or w2 == 0:
+        return torch.zeros_like(f1), torch.zeros_like(f2)
+    df1 = torch.empty_like(f1)  # every row written by the kernel
+    df2 = torch.empty_like(f2)  # every row written by the product
+    chunk = backward_chunk_edges(p, h2, w2)
+    dV = torch.empty((min(chunk, n), p, h2 * w2), dtype=torch.float32, device=f1.device)
+    for e0 in range(0, n, chunk):
+        e1 = min(n, e0 + chunk)
+        kernels.launch(
+            "corr_backward", f1.device, g[e0:e1].data_ptr(), f2[e0:e1].data_ptr(),
+            coords[e0:e1].data_ptr(), df1[e0:e1].data_ptr(), dV.data_ptr(),
+            e1 - e0, p, h2, w2, c, radius, dtype="f32",
+        )
+        torch.bmm(dV[: e1 - e0].transpose(1, 2), f1[e0:e1], out=df2[e0:e1].view(e1 - e0, h2 * w2, c))
+    return df1, df2
+
+
+class CorrLevel(torch.autograd.Function):
+    """One level of the lookup with its gradient with respect to both
+    feature maps: forward :func:`corr_level`, backward
+    :func:`corr_level_backward`. The coords get no gradient (the training
+    unroll detaches them every step); coords that require one are refused."""
+
+    @staticmethod
+    def forward(ctx, f1: Tensor, f2: Tensor, coords: Tensor, radius: int) -> Tensor:
+        ctx.save_for_backward(f1, f2, coords)
+        ctx.radius = radius
+        return corr_level(f1, f2, coords, radius)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        f1, f2, coords = ctx.saved_tensors
+        df1, df2 = corr_level_backward(g.contiguous(), f1, f2, coords, ctx.radius)
+        return df1, df2, None, None
+
+
+class CorrPyramid:
+    """The training forward's lookup (``CorrPyramid`` of the JAX package,
+    ``models/droid_net.py:111-114,141``): the per-edge feature pyramid is
+    built once per unroll (f1 scaled by 1/4, f2 scaled and pooled per
+    level, which computes the JAX package's pooled volume) and each call
+    runs :class:`CorrLevel` per level, so gradients reach both feature
+    maps through the backward kernel."""
+
+    def __init__(self, f1: Tensor, levels: List[Tensor], radius: int):
+        self.f1 = f1  # [N, P, C]
+        self.levels = levels  # level l: [N, H/2^l, W/2^l, C]
+        self.radius = radius
+
+    @staticmethod
+    def build(fmap1: Tensor, fmap2: Tensor, num_levels: int = 4, radius: int = 3) -> "CorrPyramid":
+        n, h1, w1, c = fmap1.shape
+        f1 = (fmap1 * 0.25).reshape(n, h1 * w1, c).contiguous()
+        return CorrPyramid(f1, list(_target_levels(fmap2, num_levels)), radius)
+
+    def __call__(self, coords: Tensor) -> Tensor:
+        """coords [N, H, W, 2] level-0 targets (no gradient) →
+        [N, H, W, L·(2r+1)²] f32."""
+        if coords.requires_grad:
+            raise ValueError("CorrPyramid: the lookup gives no gradient to coords; detach them")
+        n, h1, w1, _ = coords.shape
+        cflat = coords.float().reshape(n, h1 * w1, 2).contiguous()
+        out = [
+            CorrLevel.apply(self.f1, f2, (cflat / (2.0**i)).contiguous(), self.radius)
+            for i, f2 in enumerate(self.levels)
+        ]
+        return torch.cat(out, dim=-1).reshape(n, h1, w1, -1)

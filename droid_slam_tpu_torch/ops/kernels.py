@@ -58,6 +58,11 @@ KERNELS = {
         "corr_window_launch",
         [_VOIDP] * 3 + [_INT] * 5 + [_VOIDP],
     ),
+    "corr_backward": (
+        "corr_backward.cu",
+        "corr_backward_launch",
+        [_VOIDP] * 5 + [_INT] * 6 + [_VOIDP],
+    ),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

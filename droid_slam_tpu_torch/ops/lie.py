@@ -235,3 +235,96 @@ def to_matrix(pose: Tensor) -> Tensor:
     top = torch.cat([R, translation(pose)[..., :, None]], dim=-1)
     bottom = pose.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(top.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
+
+
+# -----------------------------------------------------------------------------
+# Sim(3): similarity transforms (t[3], q[4], s[1]) as (..., 8) tensors
+# -----------------------------------------------------------------------------
+# The layout of lietorch and of the JAX package: translation, xyzw
+# quaternion, scale.
+
+
+def sim3_identity(shape=(), dtype=torch.float32, device=None) -> Tensor:
+    g = torch.zeros(tuple(shape) + (8,), dtype=dtype, device=device)
+    g[..., 6:8] = 1.0
+    return g
+
+
+def sim3_scale(g: Tensor) -> Tensor:
+    return g[..., 7:8]
+
+
+def sim3_act(g: Tensor, x: Tensor) -> Tensor:
+    """Apply s·R·x + t to 3-points."""
+    return sim3_scale(g) * quat_rotate(g[..., 3:7], x) + g[..., :3]
+
+
+def sim3_mul(a: Tensor, b: Tensor) -> Tensor:
+    """(a ∘ b): scale s_a s_b, rotation q_a q_b, translation t_a + s_a R_a t_b."""
+    t = a[..., :3] + sim3_scale(a) * quat_rotate(a[..., 3:7], b[..., :3])
+    q = quat_mul(a[..., 3:7], b[..., 3:7])
+    s = sim3_scale(a) * sim3_scale(b)
+    return torch.cat([t, q, s], dim=-1)
+
+
+def sim3_inv(g: Tensor) -> Tensor:
+    q_inv = quat_conj(g[..., 3:7])
+    s_inv = 1.0 / sim3_scale(g)
+    t_inv = -s_inv * quat_rotate(q_inv, g[..., :3])
+    return torch.cat([t_inv, q_inv, s_inv], dim=-1)
+
+
+def sim3_exp(xi: Tensor) -> Tensor:
+    """Sim(3) exponential of twists (tau, phi, sigma) → (..., 8).
+
+    t = W·tau with W = C·I + A·[phi]× + B·[phi]×², s = e^sigma, theta =
+    |phi|, a = s·sinθ, b = s·cosθ:
+
+        C = (s − 1)/sigma
+        A = (a·σ + (1 − b)·θ) / (θ·(θ² + σ²))
+        B = (C − ((b − 1)σ + a·θ)/(θ² + σ²)) / θ²
+
+    with the θ→0 and σ→0 limits where these are indeterminate (the branch
+    structure of Sophus's calcW, as in the JAX package).
+    """
+    tau = xi[..., :3]
+    phi = xi[..., 3:6]
+    sigma = xi[..., 6:7]
+    q = exp_so3(phi)
+    s = torch.exp(sigma)
+
+    theta_sq = (phi * phi).sum(-1, keepdim=True)
+    small_t = theta_sq < 1e-10
+    theta_sq_safe = torch.where(small_t, torch.ones_like(theta_sq), theta_sq)
+    theta = torch.sqrt(theta_sq_safe)
+    small_s = sigma.abs() < 1e-5
+    sigma_safe = torch.where(small_s, torch.ones_like(sigma), sigma)
+
+    C = torch.where(small_s, 1.0 + sigma / 2.0 + sigma * sigma / 6.0, (s - 1.0) / sigma_safe)
+
+    # sigma small: the SE(3) coefficients
+    A_s0 = torch.where(small_t, 0.5 - theta_sq / 24.0, (1.0 - _cos(theta)) / theta_sq_safe)
+    B_s0 = torch.where(small_t, 1.0 / 6.0 - theta_sq / 120.0,
+                       (theta - _sin(theta)) / (theta * theta_sq_safe))
+    # sigma not small, theta small
+    A_t0 = ((sigma_safe - 1.0) * s + 1.0) / (sigma_safe * sigma_safe)
+    B_t0 = (C - s * (1.0 - sigma_safe / 2.0)) / (sigma_safe * sigma_safe)
+    # general case
+    a = s * _sin(theta)
+    b = s * _cos(theta)
+    c = theta_sq_safe + sigma * sigma
+    A_g = (a * sigma + (1.0 - b) * theta) / (theta * c)
+    B_g = (C - ((b - 1.0) * sigma + a * theta) / c) / theta_sq_safe
+
+    A = torch.where(small_s, A_s0, torch.where(small_t, A_t0, A_g))
+    B = torch.where(small_s, B_s0, torch.where(small_t, B_t0, B_g))
+
+    c1 = _cross(phi, tau)
+    c2 = _cross(phi, c1)
+    t = C * tau + A * c1 + B * c2
+    return torch.cat([t, q, s], dim=-1)
+
+
+def sim3_retr(g: Tensor, xi: Tensor) -> Tensor:
+    """Left-multiplicative Sim(3) retraction: g ← exp(xi) ∘ g."""
+    return sim3_mul(sim3_exp(xi), g)

@@ -155,3 +155,30 @@ def projective_transform(
     Jz = torch.matmul(Jp, Jz_pt[..., None, None, :, None])
 
     return x1, valid, TransformJacobians(Ji=Ji_full, Jj=Jj_full, Jz=Jz)
+
+
+def induced_flow(poses: Tensor, disps: Tensor, intrinsics: Tensor, ii: Tensor, jj: Tensor):
+    """Optical flow induced by camera motion (projective_ops.py:128-139):
+    (coords of frames ii in frames jj minus the pixel grid [N, H, W, 2],
+    valid [N, H, W, 1])."""
+    ht, wd = disps.shape[-2:]
+    coords0 = coords_grid(ht, wd, dtype=disps.dtype, device=disps.device)
+    coords1, valid = projective_transform(poses, disps, intrinsics, ii, jj)
+    return coords1[..., :2] - coords0, valid
+
+
+def projective_transform_batched(poses: Tensor, depths: Tensor, intrinsics: Tensor, ii: Tensor,
+                                 jj: Tensor, min_depth: float = MIN_DEPTH):
+    """:func:`projective_transform` over a leading batch dim with one edge
+    list for the batch (the JAX package vmaps it): poses [B, F, 7], depths
+    [B, F, H, W], intrinsics [B, F, 4], ii/jj [N] → (coords [B, N, H, W, 2],
+    valid [B, N, H, W, 1])."""
+    B, F = poses.shape[:2]
+    ht, wd = depths.shape[-2:]
+    N = ii.shape[0]
+    frame0 = torch.arange(B, device=poses.device)[:, None] * F
+    coords, valid = projective_transform(
+        poses.reshape(B * F, 7), depths.reshape(B * F, ht, wd), intrinsics.reshape(B * F, 4),
+        (frame0 + ii).reshape(-1), (frame0 + jj).reshape(-1), min_depth=min_depth,
+    )
+    return coords.reshape(B, N, ht, wd, -1), valid.reshape(B, N, ht, wd, 1)

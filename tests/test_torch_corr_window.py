@@ -248,3 +248,16 @@ def test_window_sector_bytes_counts_each_touched_sector_once(w2, kind, sector):
                 sectors.add((((pix * ROWS + r) * w2 + col) * 4) // sector)
     want = sector * len(sectors) + coords.size * 4 + n * p * TAPS * 4
     assert chip_smoke.window_sector_bytes(torch, torch.from_numpy(coords), w2, sector=sector) == want
+
+
+def test_launch_records_pairs_device_kernels_with_host_launches():
+    """chip_smoke.py's check that a profile kept every kernel record: one
+    device record per cudaLaunchKernel-like call of the host, memsets and
+    copies on neither side."""
+    import chip_smoke
+
+    events = [("corr_level_f32_kernel", True, 4), ("cudaLaunchKernel", False, 3), ("cudaLaunchKernelExC", False, 1),
+              ("Memset (Device)", True, 2), ("cudaMemsetAsync", False, 2), ("Memcpy DtoD (Device -> Device)", True, 1),
+              ("cudaMemcpyAsync", False, 1), ("aten::sum", False, 4), ("cuLaunchKernel", False, 1)]
+    assert chip_smoke.launch_records(events) == (4, 5)
+    assert chip_smoke.launch_records(events[:3]) == (4, 4)

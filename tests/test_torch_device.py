@@ -15,7 +15,7 @@ from droid_slam_tpu_torch.runtime import Droid, DroidConfig
 torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "droid_slam_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "optax", "orbax", "chex", "droid_slam_tpu")
 
 
 def _small_config():
