@@ -84,13 +84,17 @@ Phases, each of which fails the run:
      through the host engine, inside the same gates;
   9. training: (a) run before phase 4, beside the other kernel checks
      (late in a run torch.profiler has dropped device events):
-     corr_backward, the backward of the lookup (csrc/corr_backward.cu),
-     against autograd through corr_level_ref at the training path's
-     shapes (208 edges, 48x64 down to 6x8, C=128, f32)
-     with iid (timed, with the plain version, its bound and autograd's
-     backward of one F.grid_sample call over the same windows), smooth and
-     far-out coords, bitwise on a second run, and no tensor-core
-     instruction in its SASS; (b) one grad pass on a small seeded batch,
+     corr_backward, the backward of the lookup (csrc/corr_backward.cu:
+     three launches per level, sort, df1 and df2), against autograd
+     through corr_level_ref at the training path's shapes (208 edges,
+     48x64 down to 6x8, C=128, f32) with iid (timed, each launch too, with
+     the plain version, its bound and autograd's backward of one
+     F.grid_sample call over the same windows; the 4 levels within
+     BACKWARD_LIMIT_MS), smooth and far-out coords, and iid and far at
+     16 edges on 44x60 (no width a multiple of 8), bitwise on a second
+     run, the allocator's peak of a level-0 backward within 5% of its
+     outputs and scratch, no spills and no tensor-core instruction in its
+     SASS; (b) one grad pass on a small seeded batch,
      card against CPU: the loss and every parameter's gradient within
      TRAIN_LOSS_TOL and TRAIN_GRAD_TOL; (c) apps/train.py's train loop at
      its defaults (384x512, 7 frames, 15 iterations, 52 edge slots, batch
@@ -144,9 +148,20 @@ SEGMENT_REPEATS = 5
 # time). float32 features, profiler device time, the low end of each range:
 # corr_level_f32 at N=48 edges, P=1200, C=128, iid coords (0.5711-0.6800
 # ms); corr_slab_f32 at N=256, same widths, iid (19.56-20.49 ms).
+# corr_backward: the lookup's backward at 208 edges, 48x64 down to 6x8,
+# C=128, iid, 4 levels (a dense volume gradient and a cuBLAS product).
 # Printed on a log line of their own beside this run's profiler times.
 FIRST_DESIGN_MS = {"corr_level": 0.7206, "corr_slab": 10.6588, "corr_window": 0.3870,
-                   "corr_level_f32": 0.5711, "corr_slab_f32": 19.56}
+                   "corr_level_f32": 0.5711, "corr_slab_f32": 19.56, "corr_backward": 34.59}
+# the most the 4-level backward may take at 208 edges, iid (a 3x cut of
+# the first design's 34.59 ms); grid_sample's backward is the target, not
+# a gate
+BACKWARD_LIMIT_MS = 11.5
+# the most the allocator's peak during one level-0 backward may exceed its
+# outputs and scratch (df1, df2, perm, the bins' starts, dPatch) by
+BACKWARD_MEMORY_SLACK = 0.05
+PROFILE_TRIES = 5  # profiles of one device_ms call before the run fails
+TIMED_RANGE = "chip_smoke.timed_calls"  # the torch.profiler range around device_ms's timed calls
 
 BENCH_CONFIG = dict(
     image_size=(240, 320),
@@ -210,48 +225,86 @@ def cuda_ms(torch, fn, reps: int, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps: int, warm: int = 3) -> float:
-    """Mean device time of fn per call: the sum of the self device times of
-    every kernel fn launched, by torch.profiler, over one untimed call (the
-    session's first launches carry its set-up) and reps timed calls. A
-    profile must hold one kernel record for each kernel launch the host made
-    (the profiler drops records now and then);
-    and where the host queued the timed calls in under half of the span of
-    two CUDA events around them, the device was the bottleneck and busy the
-    whole span, so the profile must cover at least 0.7 of it. A profile that
-    fails is taken again, twice; a third failure raises."""
+def device_ms(torch, fn, reps: int, warm: int = 3, by_kernel=None) -> float:
+    """Mean device time of fn per call, by torch.profiler: one untimed call
+    (the profile's first records can be lost), then reps timed calls inside
+    the range TIMED_RANGE, and the sum of the device records (kernels,
+    memsets, copies) of the runtime calls the host made in that range,
+    matched by correlation id, over reps. A profile must hold a kernel
+    record for each kernel launch of the timed calls (the profiler drops
+    records now and then); and where the host queued the timed calls in
+    under half of the span of two CUDA events around them, the device was
+    the bottleneck and busy the whole span, so the records must cover at
+    least 0.7 of it. A profile that fails is taken again, up to
+    PROFILE_TRIES in all; then the run fails. A dict passed as by_kernel
+    receives each kernel's mean device ms per call, by name."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    for _ in range(3):
+    for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-            start.record()
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            queued_ms = (time.perf_counter() - t0) * 1e3
-            end.record()
-            torch.cuda.synchronize()
+            with record_function(TIMED_RANGE):
+                start.record()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                queued_ms = (time.perf_counter() - t0) * 1e3
+                end.record()
+                torch.cuda.synchronize()
         span_ms = start.elapsed_time(end)
-        stats = prof.key_averages()
-        device = [e for e in stats if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-        ms = sum(e.self_device_time_total for e in device) / 1e3 / (reps + 1)
-        records, launches = launch_records(
-            (e.key, e.device_type == DeviceType.CUDA and not e.is_user_annotation, e.count) for e in stats)
-        if ms > 0 and records >= launches and (queued_ms >= 0.5 * span_ms or ms * reps >= 0.7 * span_ms):
+        device_ns, launches, missing = timed_records(
+            (e.name(), event_side(e, DeviceType), e.correlation_id(), e.start_ns(), e.end_ns())
+            for e in prof.profiler.kineto_results.events())
+        ms = sum(device_ns.values()) / 1e6 / reps
+        if ms > 0 and not missing and (queued_ms >= 0.5 * span_ms or ms * reps >= 0.7 * span_ms):
+            if by_kernel is not None:
+                by_kernel.update({k: v / 1e6 / reps for k, v in device_ns.items()})
             return ms
-        log(f"  torch.profiler: {records} kernel records for {launches} launches, {ms * reps:.4f} ms of "
-            f"device time against {span_ms:.4f} ms of CUDA events (calls queued in {queued_ms:.4f} ms); "
-            "profiling again")
-    raise RuntimeError(f"torch.profiler failed its checks three times ({records} kernel records for "
-                       f"{launches} launches, {ms * reps:.4f} ms against {span_ms:.4f} ms of CUDA events)")
+        log(f"  torch.profiler: no kernel record for {len(missing)} of the timed calls' {launches} launches "
+            f"(at {missing[:6]}), {ms * reps:.4f} ms of device time against {span_ms:.4f} ms of CUDA events "
+            f"(calls queued in {queued_ms:.4f} ms); profiling again")
+    raise RuntimeError(f"torch.profiler failed its checks {PROFILE_TRIES} times (no kernel record for "
+                       f"{len(missing)} of {launches} launches, {ms * reps:.4f} ms against {span_ms:.4f} ms "
+                       "of CUDA events)")
+
+
+def event_side(e, DeviceType) -> str:
+    """"host" for a profiler event of the CPU, "device" for a record of the
+    card (a kernel, memset or copy), "" for the card's copy of a range."""
+    if e.device_type() == DeviceType.CPU:
+        return "host"
+    return "" if e.is_user_annotation() else "device"
+
+
+def timed_records(events, range_name: str = TIMED_RANGE):
+    """(device ns by name, kernel launches, missing) of the calls in the
+    host range range_name, from (name, side, correlation id, start ns,
+    end ns) profiler events, side as event_side gives it: the host's
+    runtime and driver calls (cu*) that start inside the range, the device
+    records (kernels, memsets, copies) with their correlation ids, and the
+    positions, in host order, of the kernel launches (cudaLaunchKernel,
+    cuLaunchKernelEx and the like) that have no kernel record."""
+    events = list(events)
+    lo, hi = next(((s, e) for name, side, _, s, e in events if side == "host" and name == range_name), (0, -1))
+    calls = sorted((s, name, cid) for name, side, cid, s, _ in events
+                   if side == "host" and name.startswith("cu") and lo <= s <= hi)
+    ids = {cid for _, _, cid in calls}
+    device_ns, kernel_ids = {}, set()
+    for name, side, cid, s, e in events:
+        if side == "device" and cid in ids:
+            device_ns[name] = device_ns.get(name, 0) + (e - s)
+            if not name.startswith(("Memset", "Memcpy")):
+                kernel_ids.add(cid)
+    launches = [cid for _, name, cid in calls if "LaunchKernel" in name]
+    missing = [k for k, cid in enumerate(launches) if cid not in kernel_ids]
+    return device_ns, len(launches), missing
 
 
 def launch_records(events):
@@ -1247,24 +1300,36 @@ def grid_sample_backward(torch, corr, f1, f2, coords, gout, radius=3):
     return ms, err, scale
 
 
-def check_backward_kernel(torch, corr, pops, dev, seed: int, N: int = 208, h: int = 48, w: int = 64):
-    """Phase 9a: corr_level_backward (csrc/corr_backward.cu, then df2 =
-    dVᵀ·f1) against autograd through corr_level_ref at the training path's
-    shapes (208 edges = batch 4 x 52 slots, 48x64 down to 6x8, C=128, f32)
-    with iid (timed, with the plain version, the grid_sample yardstick and
-    the bound), smooth and far-out coords; each case runs twice and must
-    repeat bitwise."""
+def check_backward_kernel(torch, corr, pops, dev, seed: int, N: int = 208, h: int = 48, w: int = 64,
+                          kinds=("iid", "smooth", "far"), timed: bool = True):
+    """Phase 9a: corr_level_backward (csrc/corr_backward.cu: the sort, df1
+    and df2 launches of corr_backward_plan) against autograd through
+    corr_level_ref at the training path's shapes (208 edges = batch 4 x 52
+    slots, 48x64 down to 6x8, C=128, f32) with iid (timed if `timed`, each
+    launch by name too, with the plain version, the grid_sample yardstick
+    and the bound), smooth and far-out coords; each case runs twice and
+    must repeat bitwise. At level 0 of each kind the allocator's peak
+    during one backward must stay within BACKWARD_MEMORY_SLACK of its
+    outputs and scratch: no dense volume gradient."""
     g = torch.Generator(device=dev).manual_seed(seed + 9)
     C = 128
     fmap1 = torch.randn((N, h, w, C), generator=g, device=dev)
     fmap2 = torch.randn((N, h, w, C), generator=g, device=dev)
     cases = []
-    for kind in ("iid", "smooth", "far"):
+    for kind in kinds:
         coords = make_coords(torch, pops, kind, N, h, w, g, dev)
         for lvl, (f1, f2, c) in enumerate(corr.lookup_levels(fmap1, fmap2, coords)):
             gout = torch.randn((N, f1.shape[1], 49), generator=g, device=dev)
             refs = corr.corr_level_backward_ref(gout, f1, f2, c)
+            plan = corr.corr_backward_plan(N, f1.shape[1], f2.shape[1], f2.shape[2], C)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
             outs = corr.corr_level_backward(gout, f1, f2, c)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            # df1, df2, dPatch [N, P, 64] f32, perm [N, P] and starts [N, bins + 1] int32
+            need = 4 * (f1.numel() + f2.numel() + N * f1.shape[1] * 64 + N * f1.shape[1] + N * (plan.bins + 1))
             outs2 = corr.corr_level_backward(gout, f1, f2, c)
             torch.cuda.synchronize()
             res = {name: compare(torch, o, o2, r) for name, o, o2, r in zip(("df1", "df2"), outs, outs2, refs)}
@@ -1273,13 +1338,23 @@ def check_backward_kernel(torch, corr, pops, dev, seed: int, N: int = 208, h: in
                         max_abs_err={k: r[0] for k, r in res.items()},
                         max_abs_ref={k: r[1] for k, r in res.items()},
                         bitwise_repeat=all(r[3] for r in res.values()),
-                        launches=-(-N // corr.backward_chunk_edges(f1.shape[1], f2.shape[1], f2.shape[2])))
-            case["ok"] = all(r[2] and r[3] and r[0] <= KERNEL_TOL * r[1] for r in res.values())
+                        launches=len(plan.grids), grids=list(plan.grids), peak_bytes=peak, need_bytes=need)
+            case["memory_ok"] = lvl > 0 or peak <= (1 + BACKWARD_MEMORY_SLACK) * need
+            case["ok"] = case["memory_ok"] and all(r[2] and r[3] and r[0] <= KERNEL_TOL * r[1]
+                                                   for r in res.values())
             msg = (f"  corr_backward {kind:6s} L{lvl} [{N},{f1.shape[1]},{C}]x[{f2.shape[1]}x{f2.shape[2]}]: "
                    + ", ".join(f"{k} max_err {r[0]:.3e} (tol {KERNEL_TOL * r[1]:.3e})" for k, r in res.items())
-                   + f", {case['launches']} launches, repeat {'bitwise' if case['bitwise_repeat'] else 'DIFFERS'}")
-            if kind == "iid":
-                case["ms"] = device_ms(torch, lambda: corr.corr_level_backward(gout, f1, f2, c), reps=5)
+                   + f", {case['launches']} launches (blocks {case['grids']}), repeat "
+                   f"{'bitwise' if case['bitwise_repeat'] else 'DIFFERS'}")
+            if lvl == 0:
+                msg += (f", peak {peak / 1e6:.1f} MB for {need / 1e6:.1f} MB of outputs and scratch "
+                        f"({'ok' if case['memory_ok'] else 'OVER'})")
+            if timed and kind == "iid":
+                per = {}
+                case["ms"] = device_ms(torch, lambda: corr.corr_level_backward(gout, f1, f2, c), reps=5,
+                                       by_kernel=per)
+                case["launch_ms"] = {stage: sum(v for k, v in per.items() if tag in k) for stage, tag in
+                                     zip(corr.BACKWARD_STAGES, ("corr_sort_kernel", "df1_kernel", "df2_kernel"))}
                 case["plain_ms"] = device_ms(torch, lambda: corr.corr_level_backward_ref(gout, f1, f2, c),
                                              reps=2, warm=1)
                 case["library_ms"], case["grid_sample_err"], scale = grid_sample_backward(
@@ -1288,13 +1363,22 @@ def check_backward_kernel(torch, corr, pops, dev, seed: int, N: int = 208, h: in
                 nbytes, ops = corr_backward_cost(torch, f1, f2, c)
                 case.update(bytes=nbytes, ops=ops)
                 case["bound_ms"], case["bound_by"] = bound(nbytes, ops, "float32")
-                msg += (f" kernel {case['ms']:.4f} ms plain "
+                msg += (f" kernel {case['ms']:.4f} ms ("
+                        + ", ".join(f"{k} {v:.4f}" for k, v in case["launch_ms"].items()) + ") plain "
                         f"{case['plain_ms']:.4f} ms bound "
                         f"{case['bound_ms']:.4f} ms ({case['bound_by']}), grid_sample backward "
                         f"{case['library_ms']:.4f} ms (forward max_err {case['grid_sample_err']:.2e})")
             cases.append(case)
             log(msg)
             torch.cuda.empty_cache()
+    if not timed:
+        return cases
+    iid = [c for c in cases if c["kind"] == "iid"]
+    log(f"  corr_backward iid, 4 levels at {N} edges: {sum(c['ms'] for c in iid):.4f} ms ("
+        + ", ".join(f"{k} {sum(c['launch_ms'][k] for c in iid):.4f}" for k in corr.BACKWARD_STAGES)
+        + f"), plain {sum(c['plain_ms'] for c in iid):.4f} ms, bound {sum(c['bound_ms'] for c in iid):.4f} ms, "
+        f"grid_sample backward {sum(c['library_ms'] for c in iid):.4f} ms; launches per level "
+        f"{[c['launches'] for c in iid]}")
     return cases
 
 
@@ -1374,15 +1458,21 @@ def profile_events(torch, prof, out_dir, name: str):
         lines += [f"{us[k] / 1e3:12.3f}  {calls[k]:8d}  {k}" for k in ranked[:40]]
         (out_dir / f"{name}.txt").write_text("\n".join(lines) + "\n")
 
-    def ms(*needles):
-        return sum(v for k, v in us.items() if any(s in k for s in needles)) / 1e3
+    def ms(*needles, skip=()):
+        return sum(v for k, v in us.items()
+                   if any(s in k for s in needles) and not any(s in k for s in skip)) / 1e3
 
+    # cuDNN's FFT convolution: its FFT kernels, its pointwise complex
+    # products and the complex (cf32) GEMMs it calls; gemm_ms the real GEMMs
+    fft_conv = ms("cf32cf32", "fft", "_complex")
+    total = sum(us.values()) / 1e3
     # a profile short of kernel records (dropped) reads too little device time
-    return dict(device_ms=sum(us.values()) / 1e3, launches=sum(calls.values()),
+    return dict(device_ms=total, launches=sum(calls.values()),
                 kernel_records=records, kernel_launches=launches, complete=records >= launches > 0,
                 corr_level_ms=ms("corr_level_f32"), corr_sort_ms=ms("corr_sort"),
-                corr_backward_ms=ms("corr_backward"), gemm_ms=ms("gemm", "sgemm"),
-                fft_conv_ms=ms("cf32cf32", "fft"), conv_ms=ms("conv", "implicit", "wgrad", "dgrad"),
+                corr_backward_ms=ms("corr_backward"), gemm_ms=ms("gemm", skip=("cf32cf32",)),
+                fft_conv_ms=fft_conv, fft_conv_share=fft_conv / total,
+                conv_ms=ms("conv", "implicit", "wgrad", "dgrad", skip=("cf32cf32", "fft", "_complex")),
                 top_kernels_ms={k[:60]: us[k] / 1e3 for k in ranked[:12]})
 
 
@@ -1440,12 +1530,13 @@ def train_at_defaults(torch, np, port, seed: int, out_dir):
     h, w = args.crop[0] // 8, args.crop[1] // 8
     n_slots = args.batch * max(len(port.train_app.neighbour_graph(args.n_frames)[0]),
                                args.edges + 4 * args.n_frames)
-    chunks = sum(-(-n_slots // port.corr.backward_chunk_edges(h * w, h >> l, w >> l)) for l in range(4))
+    per_lookup = sum(len(port.corr.corr_backward_plan(n_slots, h * w, h >> l, w >> l, 128).grids)
+                     for l in range(4))
     res = dict(steps=len(hist), passes=passes, render_s=render_s, wall_s=wall,
                step_walls_s=[x["wall_s"] for x in hist], losses=[x["metrics"]["loss"] for x in hist],
                n_valid_edges=[x["n_valid_edges"] for x in hist], launches=launches,
                expected_corr_level_f32=4 * args.iters * passes,
-               expected_corr_backward=args.iters * passes * chunks, backward_chunks_per_lookup=chunks,
+               expected_corr_backward=args.iters * passes * per_lookup, backward_launches_per_lookup=per_lookup,
                peak_allocated_gb=peak_gb, tf32=dict(matmul=torch.backends.cuda.matmul.allow_tf32,
                                                     cudnn=torch.backends.cudnn.allow_tf32))
     pr = res["profile"] = profile_events(torch, prof, out_dir, "profile_train_step")
@@ -1597,12 +1688,17 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     build_logs = kernels.build()
     build_s = time.perf_counter() - t0
+    backward_spills = {}  # the backward's functions: bytes of spill stores and loads
     for name, text in build_logs.items():
         func = ""
         for line in text.splitlines():
             if "Compiling entry function" in line or "Function properties for" in line:
                 func = line.split()[-1].strip("'")
             elif "registers" in line or "spill" in line or "smem" in line:
+                if "corr_backward" in func and "spill" in line:
+                    # "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+                    backward_spills[func] = backward_spills.get(func, 0) + sum(
+                        int(part.split()[0]) for part in line.split(",") if "spill" in part)
                 # the f32 functions by name (the bf16 ones as before, by line)
                 tag = f" {func}" if is_f32_function(func) or "corr_backward" in func else ""
                 log(f"  {name}:{tag} {line.strip()}")
@@ -1629,6 +1725,10 @@ def main(argv=None) -> int:
     log("phase 9a: corr_backward vs autograd through corr_level_ref at the training path's shapes")
     t0 = time.perf_counter()
     bwd_cases = check_backward_kernel(torch, corr, pops, dev, args.seed)
+    # ragged maps: no level's width a multiple of 8, level 0's height neither
+    # (partial column tiles and row blocks, the df2 edge clamps)
+    bwd_cases += check_backward_kernel(torch, corr, pops, dev, args.seed, N=16, h=44, w=60, kinds=("iid", "far"),
+                                       timed=False)
     bwd_wall = time.perf_counter() - t0
 
     log("phase 4: small replay + terminate, GPU port vs CPU port")
@@ -1743,7 +1843,7 @@ def main(argv=None) -> int:
         )))
     # the backward of the lookup: one training-path lookup's backward, the 4
     # levels at 208 edges, iid, f32, with phase 9c's launches
-    bwd_iid = [c for c in train["backward_cases"] if c["kind"] == "iid"]
+    bwd_iid = [c for c in train["backward_cases"] if "ms" in c]
     b_bytes = sum(c["bytes"] / MEM_BYTES_PER_S for c in bwd_iid)
     b_ops = sum(c["ops"] / PEAK_OPS_PER_S["float32"] for c in bwd_iid)
     kernel_rows.append(share(dict(
@@ -1810,13 +1910,20 @@ def main(argv=None) -> int:
         ("8a tracking", host["bench"]["tracking_ok"]), ("8a terminate", host["bench"]["terminate"]["ok"]),
         ("8a map", host["bench"]["map"]["ok"]), ("8b cull replay", host["cull"]["ok"]),
         ("8c row 1", host["row1"]["ok"])) if not ok]
-    failed += [f"corr_backward {c['kind']} L{c['level']}" for c in train["backward_cases"] if not c["ok"]]
+    failed += [f"corr_backward {c['kind']} {c['H2']}x{c['W2']} L{c['level']}" for c in train["backward_cases"]
+               if not c["ok"]]
     failed += [f"grid_sample backward yardstick L{c['level']}: forward max_err {c['grid_sample_err']:.3e}"
                for c in bwd_iid if not c["grid_sample_ok"]]
-    failed += [f"corr_backward_kernel: {k} tensor-core instructions" for f, k in
-               ((f, sum(c.values())) for f, c in sass.items() if "corr_backward_kernel" in f) if k]
-    if not any("corr_backward_kernel" in f for f in sass):
-        failed.append("corr_backward_kernel missing from the SASS")
+    failed += [f"{f}: {k} tensor-core instructions" for f, k in
+               ((f, sum(c.values())) for f, c in sass.items() if "corr_backward" in f) if k]
+    for fn in ("corr_backward_df1_kernel", "corr_backward_df2_kernel"):
+        if sum(fn in f for f in sass) != 4:  # C in (32, 64, 128, 256)
+            failed.append(f"{fn}: expected 4 instantiations in the SASS, found {sum(fn in f for f in sass)}")
+    failed += [f"{f}: {k} bytes of spills" for f, k in backward_spills.items() if k]
+    bwd_row = next(r for r in kernel_rows if r["name"] == "corr_backward")
+    if bwd_row["ms"] > BACKWARD_LIMIT_MS:
+        failed.append(f"corr_backward {bwd_row['ms']:.4f} ms per 4-level backward exceeds {BACKWARD_LIMIT_MS} ms "
+                      "(iid, N=208)")
     failed += [f"training {part}" for part in ("card_vs_cpu", "defaults", "learns", "resume")
                if not train[part]["ok"]]
     if failed:

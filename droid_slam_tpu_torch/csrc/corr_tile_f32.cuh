@@ -38,7 +38,7 @@
 //   dynamic shared memory = [tp][C + 4] f1 rows, [kStages][w2pad][C + 4] f2
 //   rows (columns [W2, w2pad) zero), and for corr_level [tp][8 * 8] supports.
 //   The sort's dynamic shared memory: (H2 + 8) * (W2 + 8) int bins and P
-//   int keys.
+//   int keys; its optional output, the bins' starts, [N][bins + 1] int.
 // Shapes refused (the first design took every shape; no path of the repo
 // comes near these): a map wider than 136 at C=128, 64 at C=256, 272 at
 // C=64 or 520 at C=32 (corr_slab: 528), where even a 16-pixel tile
@@ -112,9 +112,13 @@ constexpr int kSortThreads = 256;
 // atomics: the counts are exact), their exclusive prefix sum over the block,
 // then warp 0 takes the pixels 32 at a time in pixel order and places each
 // after the earlier pixels of its bin (__match_any_sync ranks the warp's
-// equal keys): a stable sort.
+// equal keys): a stable sort. With starts (else null: the lookups' launch),
+// starts[n, b] = the sorted position of bin b's first pixel and
+// starts[n, bins] = P, so the pixels of bins [b, e) are perm[starts[b] ..
+// starts[e]) (the lookup's backward reads its df2 candidates so).
 static __global__ void __launch_bounds__(kSortThreads)
-corr_sort_kernel(const float* __restrict__ coords, int* __restrict__ perm, int P, int H2, int W2) {
+corr_sort_kernel(const float* __restrict__ coords, int* __restrict__ perm, int* __restrict__ starts,
+                 int P, int H2, int W2) {
   extern __shared__ int sort_smem[];
   __shared__ int warp_sums[kSortThreads / 32];
   const int bins = sort_bins(H2, W2);
@@ -146,11 +150,14 @@ corr_sort_kernel(const float* __restrict__ coords, int* __restrict__ perm, int P
   __syncthreads();
   int run = incl - sum;
   for (int w = 0; w < warp; ++w) run += warp_sums[w];
+  int* sn = starts != nullptr ? starts + (size_t)blockIdx.x * (bins + 1) : nullptr;
   for (int b = lo; b < hi; ++b) {
     const int c = cnt[b];
     cnt[b] = run;
+    if (sn != nullptr) sn[b] = run;
     run += c;
   }
+  if (sn != nullptr && tid == 0) sn[bins] = P;
   __syncthreads();
   if (warp != 0) return;
   const unsigned below = (1u << lane) - 1u;
@@ -169,7 +176,7 @@ corr_sort_kernel(const float* __restrict__ coords, int* __restrict__ perm, int P
 }
 
 static int launch_sort(const void* coords, int* perm, int N, int P, int H2, int W2,
-                       cudaStream_t stream) {
+                       cudaStream_t stream, int* starts = nullptr) {
   const long long bytes = ((long long)sort_bins(H2, W2) + P) * 4;
   if (bytes > kSmemLimit - 64) return (int)cudaErrorInvalidValue;
   if (bytes > 48 * 1024) {
@@ -178,7 +185,7 @@ static int launch_sort(const void* coords, int* perm, int N, int P, int H2, int 
     if (err != cudaSuccess) return (int)err;
   }
   corr_sort_kernel<<<N, kSortThreads, (int)bytes, stream>>>(static_cast<const float*>(coords),
-                                                            perm, P, H2, W2);
+                                                            perm, starts, P, H2, W2);
   return (int)cudaGetLastError();
 }
 

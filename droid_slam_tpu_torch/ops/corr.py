@@ -508,16 +508,54 @@ def corr_lookup(
 # the differentiable lookup (training)
 # -----------------------------------------------------------------------------
 
-# the most bytes of the dense volume gradient dV that one launch of the
-# backward kernel fills: corr_level_backward cuts the edges into chunks
-BACKWARD_DV_BYTES = 1 << 31
+# the plan of the backward kernel (csrc/corr_backward.cu): three launches
+# per level (stage 0 the per-edge sort with its bin starts, 1 df1 and the
+# dPatch scratch over tiles of 64 sorted pixels, f2 rows through 2 buffers,
+# 2 df2 over blocks of 8 target rows by 8 columns); edges lie on grid x
+# with the tiles
+BACKWARD_TILE_PIXELS = 64  # sorted pixels per df1 block: 8 warps of 8
+BACKWARD_RING = 2  # f2 row buffers of df1
+BACKWARD_DF2_ROWS = 8  # target rows per df2 block: one warp each
+BACKWARD_DF2_COLS = 8  # target columns per df2 block
+BACKWARD_DF2_BATCH = 64  # candidates staged per round
+BACKWARD_STAGES = ("sort", "df1", "df2")
+# stage 1's static shared memory: the tile's origins, fractions, pixels and
+# the band reduction's scratch
+_BACKWARD_DF1_STATIC = 5 * BACKWARD_TILE_PIXELS * 4 + _RED
+_GRID_LIMIT = 2**31 - 1
 
 
-def backward_chunk_edges(p: int, h2: int, w2: int) -> int:
-    """Edges per launch of the backward kernel at P source pixels and an
-    H2 x W2 map: as many as fill :data:`BACKWARD_DV_BYTES` of dV, at least
-    one, at most 65535 (the grid's limit)."""
-    return max(1, min(65535, BACKWARD_DV_BYTES // max(1, p * h2 * w2 * 4)))
+class BackwardPlan(NamedTuple):
+    """Launch layout of the lookup's backward at one level, passed to its
+    entry point, which checks it against the source's layout."""
+
+    bins: int  # sort bins per edge: (H2 + 8)·(W2 + 8); starts holds bins + 1
+    grids: Tuple[int, int, int]  # blocks of the sort, df1 and df2 launches
+    smem: Tuple[int, int, int]  # their dynamic shared memory in bytes
+
+
+def corr_backward_plan(n: int, p: int, h2: int, w2: int, c: int) -> BackwardPlan:
+    """The plan of the backward for N edges, P source pixels, an H2 x W2 map
+    and C channels. Raises ValueError where the sort's bins and keys or
+    df1's row buffers exceed the 227 KB of shared memory a block can have
+    (at C=128 a map wider than 163; no path of the repo), or a grid would
+    exceed 2³¹−1 blocks."""
+    bins = (h2 + 8) * (w2 + 8)
+    sort_smem = (bins + p) * 4
+    # df1: the f2 row buffers, the tile's dPatch, each warp's [W2][8] weights
+    df1_smem = (BACKWARD_RING * w2 * (c + F32_ROW_PAD_FLOATS) + BACKWARD_TILE_PIXELS * 64
+                + BACKWARD_TILE_PIXELS * w2) * 4
+    # df2: a round's f1 rows, dPatch rows and weights shifted onto the tile
+    df2_smem = BACKWARD_DF2_BATCH * (c + 2 * 64) * 4
+    if sort_smem > SMEM_LIMIT - 64 or df1_smem + _BACKWARD_DF1_STATIC > SMEM_LIMIT:
+        raise ValueError(
+            f"corr_backward: a level of {h2}x{w2} at P={p}, C={c} needs {sort_smem} bytes of shared "
+            f"memory to sort and {df1_smem + _BACKWARD_DF1_STATIC} for df1, above the {SMEM_LIMIT} "
+            "(227 KB) a block can use")
+    grids = (n, n * -(-p // BACKWARD_TILE_PIXELS), n * -(-h2 // BACKWARD_DF2_ROWS) * -(-w2 // BACKWARD_DF2_COLS))
+    if max(grids) > _GRID_LIMIT:
+        raise ValueError(f"corr_backward: {max(grids)} blocks exceed the grid's {_GRID_LIMIT}")
+    return BackwardPlan(bins, grids, (sort_smem, df1_smem, df2_smem))
 
 
 def corr_level_backward_ref(g: Tensor, f1: Tensor, f2: Tensor, coords: Tensor,
@@ -540,11 +578,12 @@ def corr_level_backward(g: Tensor, f1: Tensor, f2: Tensor, coords: Tensor,
     :func:`corr_level_backward_ref`).
 
     A CUDA tensor goes to ``csrc/corr_backward.cu`` (f32 g, features and
-    coords, contiguous, C a multiple of 32 up to 256, radius 3): per chunk
-    of :func:`backward_chunk_edges` edges one launch writes df1 and each
-    pixel's row of the dense volume gradient dV [n, P, H2·W2], then df2 =
-    dVᵀ·f1 is one batched product. Nothing is summed with atomics, so equal
-    inputs give equal bits. A CPU tensor goes to the plain version.
+    coords, contiguous, 16-byte aligned, C ∈ {32, 64, 128, 256}, radius 3):
+    the three launches of :func:`corr_backward_plan` (sort with bin starts,
+    df1, df2), with an int32 perm [N, P], the bins' starts and an f32 dPatch
+    scratch [N, P, 64] as their only memory beside df1 and df2. Nothing is
+    summed with atomics, so equal inputs give equal bits. A CPU tensor goes
+    to the plain version.
     """
     if g.device.type == "cpu":
         return corr_level_backward_ref(g, f1, f2, coords, radius)
@@ -559,23 +598,24 @@ def corr_level_backward(g: Tensor, f1: Tensor, f2: Tensor, coords: Tensor,
             or tuple(g.shape) != (n, p, rd * rd)):
         raise ValueError(f"corr_backward: shape mismatch g {tuple(g.shape)}, f1 {tuple(f1.shape)}, "
                          f"f2 {tuple(f2.shape)}, coords {tuple(coords.shape)}")
-    if c % 32 or not 0 < c <= 256 or radius != 3:
-        raise ValueError(f"corr_backward: kernel takes C a multiple of 32 up to 256 and radius 3, "
+    if c not in (32, 64, 128, 256) or radius != 3:
+        raise ValueError(f"corr_backward: kernel takes C in (32, 64, 128, 256) and radius 3, "
                          f"got {c}, {radius}")
     if n == 0 or p == 0 or h2 == 0 or w2 == 0:
         return torch.zeros_like(f1), torch.zeros_like(f2)
-    df1 = torch.empty_like(f1)  # every row written by the kernel
-    df2 = torch.empty_like(f2)  # every row written by the product
-    chunk = backward_chunk_edges(p, h2, w2)
-    dV = torch.empty((min(chunk, n), p, h2 * w2), dtype=torch.float32, device=f1.device)
-    for e0 in range(0, n, chunk):
-        e1 = min(n, e0 + chunk)
-        kernels.launch(
-            "corr_backward", f1.device, g[e0:e1].data_ptr(), f2[e0:e1].data_ptr(),
-            coords[e0:e1].data_ptr(), df1[e0:e1].data_ptr(), dV.data_ptr(),
-            e1 - e0, p, h2, w2, c, radius, dtype="f32",
-        )
-        torch.bmm(dV[: e1 - e0].transpose(1, 2), f1[e0:e1], out=df2[e0:e1].view(e1 - e0, h2 * w2, c))
+    if f1.data_ptr() % 16 or f2.data_ptr() % 16:
+        raise ValueError("corr_backward: f1 and f2 must start on a 16-byte boundary (16-byte loads)")
+    plan = corr_backward_plan(n, p, h2, w2, c)
+    dev = f1.device
+    perm = torch.empty((n, p), dtype=torch.int32, device=dev)
+    starts = torch.empty((n, plan.bins + 1), dtype=torch.int32, device=dev)
+    dpatch = torch.empty((n, p, 64), dtype=torch.float32, device=dev)
+    df1 = torch.empty_like(f1)  # every row written by stage 1
+    df2 = torch.empty_like(f2)  # every element written by stage 2
+    ptrs = [t.data_ptr() for t in (g, f1, f2, coords, perm, starts, dpatch, df1, df2)]
+    for stage, (grid, smem) in enumerate(zip(plan.grids, plan.smem)):
+        kernels.launch("corr_backward", dev, stage, *ptrs, n, p, h2, w2, c, radius, grid, smem,
+                       dtype="f32")
     return df1, df2
 
 

@@ -61,7 +61,7 @@ KERNELS = {
     "corr_backward": (
         "corr_backward.cu",
         "corr_backward_launch",
-        [_VOIDP] * 5 + [_INT] * 6 + [_VOIDP],
+        [_INT] + [_VOIDP] * 9 + [_INT] * 6 + [ctypes.c_longlong, _INT, _VOIDP],
     ),
 }
 

@@ -261,3 +261,41 @@ def test_launch_records_pairs_device_kernels_with_host_launches():
               ("cudaMemcpyAsync", False, 1), ("aten::sum", False, 4), ("cuLaunchKernel", False, 1)]
     assert chip_smoke.launch_records(events) == (4, 5)
     assert chip_smoke.launch_records(events[:3]) == (4, 4)
+
+
+def test_timed_records_match_records_to_the_timed_launches():
+    """chip_smoke.py's device_ms: only the runtime calls inside the timed
+    range count, each device record joins its call by correlation id, a
+    record lost from the untimed call before the range is no fault, and a
+    timed launch without its kernel record is reported by position."""
+    import chip_smoke
+
+    rng = chip_smoke.TIMED_RANGE
+    events = [
+        ("cudaLaunchKernel", "host", 11, 100, 105),  # the untimed call: its record is lost
+        ("cudaDeviceSynchronize", "host", 12, 106, 150),
+        (rng, "host", 3, 200, 400),
+        (rng, "", 3, 500, 700),  # the card's copy of the range
+        ("cudaEventRecord", "host", 13, 201, 202),
+        ("aten::empty", "host", 21, 205, 206),  # an op's own id, not a correlation id
+        ("cudaLaunchKernel", "host", 21, 210, 215),
+        ("cudaMemsetAsync", "host", 22, 220, 222),
+        ("cuLaunchKernelEx", "host", 23, 230, 236),
+        ("cudaLaunchKernel", "host", 24, 240, 244),
+        ("corr_level_f32_kernel", "device", 21, 300, 340),
+        ("Memset (Device)", "device", 22, 340, 345),
+        ("gemm_kernel", "device", 23, 350, 360),
+        ("corr_level_f32_kernel", "device", 24, 360, 380),
+        ("corr_level_f32_kernel", "device", 99, 390, 399),  # no call in the range
+        ("cudaLaunchKernel", "host", 25, 401, 405),  # after the range
+        ("corr_level_f32_kernel", "device", 25, 410, 420),
+    ]
+    ns, launches, missing = chip_smoke.timed_records(events)
+    assert ns == {"corr_level_f32_kernel": 60, "Memset (Device)": 5, "gemm_kernel": 10}
+    assert (launches, missing) == (3, [])
+    # the gemm's record is lost: the second timed launch
+    ns, launches, missing = chip_smoke.timed_records(e for e in events if e[0] != "gemm_kernel")
+    assert (launches, missing) == (3, [1])
+    assert sum(ns.values()) == 65
+    # no range: nothing is timed
+    assert chip_smoke.timed_records(e for e in events if e[0] != rng) == ({}, 0, [])

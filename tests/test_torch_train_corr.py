@@ -1,11 +1,13 @@
 """The differentiable correlation lookup of the training path
 (``ops/corr.py::CorrPyramid``/``CorrLevel``) against ``jax.grad`` through
 the JAX package's ``CorrPyramid``; the plain backward under
-``torch.autograd.gradcheck``; and a numpy emulation of the backward
-kernel's arithmetic (``csrc/corr_backward.cu``: per-pixel 8x8 support
-gradient, dense dV rows, df1 gather, df2 = dVᵀ·f1) against the plain
-version. The kernel itself runs only on the card (``chip_smoke.py`` phase
-9a)."""
+``torch.autograd.gradcheck``; and numpy emulations of the backward kernel
+(``csrc/corr_backward.cu``): its launch plan (the per-edge sort's bin
+starts and the per-target candidate ranges of df2), df1 (per-pixel 8x8
+support gradient, one chain per channel over the cells in row-major order)
+and df2 (one chain per output over the candidates in sorted order), each
+against the plain version. The kernel itself runs only on the card
+(``chip_smoke.py`` phase 9a)."""
 
 import jax
 import jax.numpy as jnp
@@ -117,29 +119,118 @@ def test_backward_cpu_uses_plain_version_without_launch():
     assert kernels.LAUNCHES["corr_backward"] == 0
 
 
-def test_backward_chunks():
-    # at the training defaults (48x64 features, 208 edges) level 0's dV is
-    # 37.7 MB per edge: 56 edges per 2 GiB launch, 4 launches; the coarser
-    # levels fit in one
-    assert corr.backward_chunk_edges(3072, 48, 64) == 56
-    assert [-(-208 // corr.backward_chunk_edges(3072, 48 >> l, 64 >> l)) for l in range(4)] == [4, 1, 1, 1]
-    assert corr.backward_chunk_edges(1, 0, 8) == 65535
-
-
-def _emulate_kernel(g, f1, f2, coords, radius=3):
-    """The arithmetic of csrc/corr_backward.cu in numpy f32: per pixel the
-    8x8 support gradient (corner weights, cells outside the map zero), the
-    pixel's dense dV row, df1 as one sum per channel over the cells in
-    row-major order, then df2 = dVᵀ·f1 per edge."""
-    n, p, c = f1.shape
-    h2, w2 = f2.shape[1:3]
-    rd, sup = 2 * radius + 1, 2 * radius + 2
+def _origins(coords, radius=3):
+    """(x0, y0, dx, dy) of each window: the float expressions of the kernels."""
     f32 = np.float32
     c0 = coords - f32(radius)
     o = np.floor(np.clip(c0, f32(-1e4), f32(1e4)))
     d = c0 - o
-    dx, dy = d[..., 0], d[..., 1]
-    x0, y0 = o[..., 0].astype(np.int64), o[..., 1].astype(np.int64)
+    return o[..., 0].astype(np.int64), o[..., 1].astype(np.int64), d[..., 0], d[..., 1]
+
+
+def _emulate_sort(coords, h2, w2):
+    """corr_sort_kernel with its bin starts: per edge a stable sort of the
+    pixels by bin (window row + 7, or the last bin row for windows off the
+    map's rows; then window column + 7 clamped to [0, W2 + 7]) → perm
+    [N, P] and starts [N, bins + 1] (each bin's first sorted position, then
+    P)."""
+    x0, y0, _, _ = _origins(coords)
+    ky = np.where((y0 + 7 >= 0) & (y0 < h2), y0 + 7, h2 + 7)
+    kx = np.clip(x0 + 7, 0, w2 + 7)
+    key = ky * (w2 + 8) + kx
+    bins = (h2 + 8) * (w2 + 8)
+    perm = np.argsort(key, axis=1, kind="stable")
+    counts = np.stack([np.bincount(k, minlength=bins) for k in key])
+    starts = np.concatenate([np.zeros((len(key), 1), np.int64), np.cumsum(counts, axis=1)], axis=1)
+    return perm, starts, key
+
+
+def _df2_candidates(perm, starts, x0, y, xs, w2):
+    """The candidates of target (row y, columns [xs, xs+8)) of one edge, the
+    list one df2 warp's chain runs over: the 8 bin-row ranges of perm
+    (windows with y0 in [y-7, y] and x0 in [xs-7, min(xs+7, W2-1)]) in
+    order, then those whose window meets the tile's columns (the ballot)
+    → (ranged, kept)."""
+    bw = w2 + 8
+    lo, hi = xs, min(xs + 14, w2 + 6)
+    ranged = np.concatenate([perm[starts[ky * bw + lo]:starts[ky * bw + hi + 1]] for ky in range(y, y + 8)])
+    d = x0[ranged] - xs
+    return ranged, ranged[(d > -8) & (d < 8)]
+
+
+def _df2_block_stream(perm, starts, x0, y_lo, xs, h2, w2):
+    """The candidates of the df2 block of rows [y_lo, y_lo + 8) and columns
+    [xs, xs + 8) of one edge, in stream order: the bin rows of windows with
+    y0 in [y_lo - 7, y_hi] and x0 in [xs - 7, min(xs + 7, W2 - 1)], then
+    those whose window meets the block's columns."""
+    bw = w2 + 8
+    y_hi = min(y_lo + 8, h2) - 1
+    lo, hi = xs, min(xs + 14, w2 + 6)
+    ranged = np.concatenate([perm[starts[ky * bw + lo]:starts[ky * bw + hi + 1]]
+                             for ky in range(y_lo, y_hi + 8)])
+    d = x0[ranged] - xs
+    return ranged[(d > -8) & (d < 8)]
+
+
+def _level_coords(kind, level, n=3, h=6, w=11):
+    return _coords(kind, 8, n, h, w).reshape(n, h * w, 2) / np.float32(2.0**level), h >> level, w >> level
+
+
+@pytest.mark.parametrize("level", [0, 1])
+@pytest.mark.parametrize("kind", ["iid", "smooth", "far"])
+def test_backward_plan_candidates_cover_supports(kind, level):
+    # far: 20% of the windows at ±1e5, row 0's windows half above the map,
+    # the last column's half right of it; W2 = 11 leaves a ragged tile
+    coords, h2, w2 = _level_coords(kind, level)
+    perm, starts, key = _emulate_sort(coords, h2, w2)
+    x0, y0, _, _ = _origins(coords)
+    assert starts.shape == (3, (h2 + 8) * (w2 + 8) + 1) and (starts[:, -1] == coords.shape[1]).all()
+    for e in range(3):
+        for b in range(starts.shape[1] - 1):  # each bin: its pixels, ascending (a stable sort)
+            members = perm[e, starts[e, b]:starts[e, b + 1]]
+            assert (key[e, members] == b).all() and (np.diff(members) > 0).all()
+        for y in range(h2):
+            for xs in range(0, w2, 8):
+                ranged, kept = _df2_candidates(perm[e], starts[e], x0[e], y, xs, w2)
+                meets = ((y0[e] <= y) & (y <= y0[e] + 7) & (x0[e] <= min(xs + 7, w2 - 1))
+                         & (x0[e] + 7 >= xs))
+                assert sorted(kept) == sorted(np.flatnonzero(meets)) and len(set(kept)) == len(kept)
+                # what the ballot drops: far-left windows sharing the bin of x0 = -7
+                dropped = np.setdiff1d(ranged, kept)
+                assert xs == 0 or len(dropped) == 0
+                assert (x0[e, dropped] < -7).all()
+                # the block holding this target (8 rows) streams a superset in
+                # the same order: its warp's row filter gives the target's list
+                stream = _df2_block_stream(perm[e], starts[e], x0[e], y // 8 * 8, xs, h2, w2)
+                mine = stream[(y0[e, stream] <= y) & (y <= y0[e, stream] + 7)]
+                assert list(mine) == list(kept)
+
+
+def test_backward_plan_training_shapes():
+    # 208 edges (batch 4 x 52 slots), 48x64 features: 3 launches per level,
+    # the same number of blocks at every level for the sort and df1 (P does
+    # not shrink), df2 one block per 8 rows by 8 columns
+    plans = [corr.corr_backward_plan(208, 3072, 48 >> l, 64 >> l, 128) for l in range(4)]
+    assert [p.grids for p in plans] == [(208, 208 * 48, 208 * 48), (208, 208 * 48, 208 * 12),
+                                        (208, 208 * 48, 208 * 4), (208, 208 * 48, 208)]
+    assert plans[0].bins == 56 * 72
+    assert plans[0].smem == ((56 * 72 + 3072) * 4, (2 * 64 * 132 + 64 * 64 + 64 * 64) * 4, 64 * 256 * 4)
+    assert len(corr.BACKWARD_STAGES) == len(plans[0].grids) == 3
+    corr.corr_backward_plan(1, 64, 8, 163, 128)
+    with pytest.raises(ValueError, match="227 KB"):
+        corr.corr_backward_plan(1, 64, 8, 164, 128)
+
+
+def _emulate_df1(g, f1, f2, coords, radius=3):
+    """Stage 1 of csrc/corr_backward.cu in numpy f32: per pixel the 8x8
+    support gradient dPatch (corner weights, cells outside the map zero),
+    then df1 as one sum per channel over the cells in row-major order, cells
+    off the map skipped → (df1, dPatch [N, P, 8, 8])."""
+    n, p, c = f1.shape
+    h2, w2 = f2.shape[1:3]
+    rd, sup = 2 * radius + 1, 2 * radius + 2
+    f32 = np.float32
+    x0, y0, dx, dy = _origins(coords, radius)
     w00, w10 = (f32(1) - dx) * (f32(1) - dy), dx * (f32(1) - dy)
     w01, w11 = (f32(1) - dx) * dy, dx * dy
     taps = g.reshape(n, p, rd, rd)  # [i (x), j (y)]
@@ -158,32 +249,70 @@ def _emulate_kernel(g, f1, f2, coords, radius=3):
             y, x = y0 + jy, x0 + ix
             inside = (y >= 0) & (y < h2) & (x >= 0) & (x < w2)
             patch[..., jy, ix] = np.where(inside, v, f32(0))
-    dV = np.zeros((n, p, h2 * w2), f32)
     df1 = np.zeros((n, p, c), f32)
-    ni, pi = np.meshgrid(np.arange(n), np.arange(p), indexing="ij")
+    ni = np.arange(n)[:, None]
     for cell in range(sup * sup):
         jy, ix = divmod(cell, sup)
         y, x = y0 + jy, x0 + ix
         inside = (y >= 0) & (y < h2) & (x >= 0) & (x < w2)
-        idx = np.where(inside, y * w2 + x, 0)
-        dV[ni[inside], pi[inside], idx[inside]] = patch[..., jy, ix][inside]
-        rows = f2.reshape(n, h2 * w2, c)[ni, idx]  # [n, p, c]
+        rows = f2.reshape(n, h2 * w2, c)[ni, np.where(inside, y * w2 + x, 0)]  # [n, p, c]
         df1 = df1 + np.where(inside[..., None], patch[..., jy, ix][..., None] * rows, f32(0))
-    df2 = np.einsum("npv,npc->nvc", dV, f1).reshape(n, h2, w2, c)
-    return df1, df2.astype(f32), dV
+    return df1, patch
+
+
+def _emulate_df2(patch, f1, coords, h2, w2):
+    """Stage 2 of csrc/corr_backward.cu in numpy f32: per edge and target
+    (row y, columns [xs, xs+8)) one float32 sum per output over the kept
+    candidates in sorted order, each candidate's dPatch row y - y0 shifted
+    onto the tile's columns; outputs no candidate reaches stay 0."""
+    n, p, c = f1.shape
+    perm, starts, _ = _emulate_sort(coords, h2, w2)
+    x0, y0, _, _ = _origins(coords)
+    df2 = np.zeros((n, h2, w2, c), np.float32)
+    for e in range(n):
+        for y in range(h2):
+            for xs in range(0, w2, 8):
+                acc = np.zeros((8, c), np.float32)
+                for q in _df2_candidates(perm[e], starts[e], x0[e], y, xs, w2)[1]:
+                    w = np.zeros(8, np.float32)
+                    d = x0[e, q] - xs
+                    for m in range(8):
+                        if 0 <= m + d < 8:
+                            w[m + d] = patch[e, q, y - y0[e, q], m]
+                    acc = acc + w[:, None] * f1[e, q][None, :]
+                df2[e, y, xs:xs + 8] = acc[:min(8, w2 - xs)]
+    return df2
+
+
+def _backward_inputs(kind, level=0):
+    coords, h2, w2 = _level_coords(kind, level, h=6, w=8)
+    n, p, c = 3, 48, 32
+    r = np.random.default_rng(7)
+    f1 = r.standard_normal((n, p, c)).astype(np.float32)
+    f2 = r.standard_normal((n, h2, w2, c)).astype(np.float32)
+    g = r.standard_normal((n, p, 49)).astype(np.float32)
+    want = corr.corr_level_backward_ref(*(torch.from_numpy(a) for a in (g, f1, f2, coords)))
+    return g, f1, f2, coords, [w.numpy() for w in want]
 
 
 @pytest.mark.parametrize("kind", ["iid", "smooth", "far"])
 def test_kernel_emulation_matches_plain_backward(kind):
-    n, h, w, c = 3, 6, 8, 32
-    r = np.random.default_rng(7)
-    f1 = r.standard_normal((n, h * w, c)).astype(np.float32)
-    f2 = r.standard_normal((n, h, w, c)).astype(np.float32)
-    coords = _coords(kind, 8, n, h, w).reshape(n, h * w, 2)
-    g = r.standard_normal((n, h * w, 49)).astype(np.float32)
-    df1, df2, dV = _emulate_kernel(g, f1, f2, coords)
-    w1, w2 = corr.corr_level_backward_ref(*(torch.from_numpy(a) for a in (g, f1, f2, coords)))
-    assert _rel_err(df1, w1.numpy()) < TOL
-    assert _rel_err(df2, w2.numpy()) < TOL
-    # each pixel's dV row holds at most its 8x8 support
-    assert ((dV != 0).sum(-1) <= 64).all()
+    g, f1, f2, coords, (w1, _) = _backward_inputs(kind)
+    df1, patch = _emulate_df1(g, f1, f2, coords)
+    assert _rel_err(df1, w1) < TOL
+    # the dPatch scratch df2 reads: every cell off the map is exactly 0
+    x0, y0, _, _ = _origins(coords)
+    h2, w2 = f2.shape[1:3]
+    jy, ix = np.arange(8)[:, None], np.arange(8)[None, :]
+    y, x = y0[..., None, None] + jy, x0[..., None, None] + ix
+    off = (y < 0) | (y >= h2) | (x < 0) | (x >= w2)
+    assert off.any() and (patch[off] == 0).all()
+
+
+@pytest.mark.parametrize("kind", ["iid", "smooth", "far"])
+def test_df2_emulation_matches_plain_backward(kind):
+    g, f1, f2, coords, (_, w2) = _backward_inputs(kind)
+    _, patch = _emulate_df1(g, f1, f2, coords)
+    df2 = _emulate_df2(patch, f1, coords, *f2.shape[1:3])
+    assert _rel_err(df2, w2) < TOL
+
