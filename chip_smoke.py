@@ -104,7 +104,26 @@ Phases, each of which fails the run:
      and the peak of allocated memory; (d) LEARN_STEPS steps on one clip
      cut the loss by LEARN_RATIO; (e) a saved train state restores bit for
      bit and its next step's loss and gradients match the uninterrupted
-     step's.
+     step's;
+  10. the distributed paths on this card as 1-rank groups (NCCL at a free
+     port on 127.0.0.1, and a gloo group for CPU tensors), destroyed at
+     the end of the phase: (a) phase 4's replay with each Droid's global
+     BA sharded over its device's group (Droid(ba_mesh=)), held to phase
+     4's bounds, each terminate within 1e-4 of the same Droid's
+     single-device one (its terminate(stream) within 5e-3);
+     phase 5's frames at the bench configuration tracked by
+     Droid(ba_mesh=), warm_terminate(), then terminate() twice: the split
+     pair launched 4 x 19 x chunks times each, the two within 1e-6 with
+     the same backend edge counts, and the poses and disparities against
+     phase 6's single-device terminate within SHARDED_VS_SINGLE_TOL (bf16:
+     relative, the single-device BA stores the Schur blocks in bf16, the
+     sharded one in f32), and against the same Droid's single-device
+     terminate with the Schur blocks in f32 within SHARDED_VS_F32_TOL;
+     (b) one optimizer step of apps/train.py's train() at 9b's shapes
+     through the group against the same step without one, in
+     deterministic mode: the parameters bit for bit equal; and the flat
+     gradient all-reduce of every DroidNet parameter timed with CUDA
+     events.
 
 It prints a `kernels` JSON line (corr_level, corr_slab and corr_window in
 bf16, corr_level_f32, corr_slab_f32 and corr_backward), the card's name
@@ -697,8 +716,13 @@ def check_segment_sum(torch, segment, dev, seed: int):
     return cases
 
 
-def small_replay(torch, np, Droid, DroidConfig, init_params, seed: int):
-    """Phase 4: the same 8 RGB-D frames through the GPU port and the CPU port."""
+def small_replay(torch, np, Droid, DroidConfig, init_params, seed: int, meshes=None):
+    """Phase 4: the same 8 RGB-D frames through the GPU port and the CPU port.
+    With ``meshes`` ({"cuda": group, "cpu": group}), each Droid's global BA
+    runs sharded over its device's process group (phase 10a), and each
+    Droid terminates its tracked state once more without the group: the
+    largest differences of the two terminate() and terminate(stream)
+    trajectories by device (``vs_single_device``)."""
     params = init_params(seed)
     rng = np.random.default_rng(1234 + seed)
     intr = np.array([64.0, 64.0, 32.0, 32.0], np.float32)
@@ -709,13 +733,18 @@ def small_replay(torch, np, Droid, DroidConfig, init_params, seed: int):
     ]
     # the frames between the keyframes, for the trajectory filler
     stream = [(t + 0.5, img, intr) for t, (img, _) in enumerate(frames)]
-    runs, trajs = {}, {}
+    runs, trajs, vs_single = {}, {}, {}
     for device in ("cuda", "cpu"):
-        d = Droid(DroidConfig(**SMALL_CONFIG), params=params, device=device)
+        d = Droid(DroidConfig(**SMALL_CONFIG), params=params, device=device,
+                  ba_mesh=None if meshes is None else meshes[device])
         for t, (img, depth) in enumerate(frames):
             d.track(t, img, depth=depth, intrinsics=intr)
         runs[device] = d
         trajs[device] = (d.terminate(), d.terminate(iter(stream)))
+        if meshes is not None:
+            d.ba_mesh = None
+            single = (d.terminate(), d.terminate(iter(stream)))
+            vs_single[device] = [float(np.abs(a - b).max()) for a, b in zip(trajs[device], single)]
     gpu, cpu = runs["cuda"], runs["cpu"]
     dp = float((gpu.poses.cpu() - cpu.poses).abs().max())
     dd = float((gpu.disps.cpu() - cpu.disps).abs().max())
@@ -733,6 +762,8 @@ def small_replay(torch, np, Droid, DroidConfig, init_params, seed: int):
     res["ok"] = bool(res["same_keyframes"] and res["same_edges"] and dp < 5e-3 and dd < 1e-2
                      and res["terminate_err"] < 5e-3 and res["terminate_stream_err"] < 5e-3
                      and res["shapes_ok"] and res["finite"])
+    if meshes is not None:
+        res["vs_single_device"] = vs_single
     log(f"  {res}")
     return res
 
@@ -857,40 +888,64 @@ def range_ms(events, DeviceType, name: str):
     return 0.0, 0
 
 
-def terminate_path(torch, np, kernels, droid, out_dir):
-    """Phase 6: Droid.terminate() twice on phase 5's Droid, which must
-    repeat (the same backend edge counts and chunks, trajectories within
-    1e-6), then once more under torch.profiler."""
-    runs, trajs = [], []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        traj = droid.terminate()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
-        launches.update(kernels.DTYPE_LAUNCHES)
-        steps_x_chunks = sum(steps * chunks for steps, (_, chunks) in zip((7, 12), droid.backend_runs))
-        run = dict(
-            wall_s=wall, launches=launches, backend_runs=droid.backend_runs,
-            expected_split_launches=4 * steps_x_chunks,
-            finite=bool(np.isfinite(traj).all()),
-            shape_ok=traj.shape == (droid.counter, 7),
-            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-        )
-        run["ok"] = bool(run["finite"] and run["shape_ok"] and steps_x_chunks > 0
-                         and launches["corr_slab"] == launches["corr_window"] == run["expected_split_launches"])
-        log(f"  terminate: {run}")
-        runs.append(run)
-        trajs.append(traj)
+def timed_terminate(torch, np, kernels, droid):
+    """One Droid.terminate() with the launch counts set to 0 before it and
+    read after it: (the run's record, the trajectory). The split pair must
+    launch 4 levels x (7 + 12) global-BA steps x the update-operator
+    chunks times."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    traj = droid.terminate()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    launches.update(kernels.DTYPE_LAUNCHES)
+    steps_x_chunks = sum(steps * chunks for steps, (_, chunks) in zip((7, 12), droid.backend_runs))
+    run = dict(
+        wall_s=wall, launches=launches, backend_runs=droid.backend_runs,
+        expected_split_launches=4 * steps_x_chunks,
+        finite=bool(np.isfinite(traj).all()),
+        shape_ok=traj.shape == (droid.counter, 7),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+    )
+    run["ok"] = bool(run["finite"] and run["shape_ok"] and steps_x_chunks > 0
+                     and launches.get("corr_slab") == launches.get("corr_window") == run["expected_split_launches"])
+    log(f"  terminate: {run}")
+    return run, traj
+
+
+def repeat_of(np, runs, trajs):
+    """Two terminates of one tracked state must repeat: the same backend
+    edge counts and chunks, trajectories within 1e-6."""
     repeat = dict(
         same_backend_runs=runs[0]["backend_runs"] == runs[1]["backend_runs"],
         trajectory_max_diff=float(np.abs(trajs[0] - trajs[1]).max()),
     )
     repeat["ok"] = bool(repeat["same_backend_runs"] and repeat["trajectory_max_diff"] <= 1e-6)
     log(f"  repeat: {repeat}")
+    return repeat
+
+
+def terminate_path(torch, np, kernels, droid, out_dir):
+    """Phase 6: Droid.terminate() twice on phase 5's Droid, which must
+    repeat (the same backend edge counts and chunks, trajectories within
+    1e-6), then once more under torch.profiler. Also returns, apart from
+    the record, what phase 10a compares its sharded terminate with: the
+    tracked poses, and the trajectory, poses and disparities after the
+    first terminate, on the host."""
+    tracked = droid.poses.cpu()
+    runs, trajs = [], []
+    for k in range(2):
+        run, traj = timed_terminate(torch, np, kernels, droid)
+        runs.append(run)
+        trajs.append(traj)
+        if k == 0:
+            v = droid.video
+            ref = dict(frames=droid.counter, tracked_poses=tracked, traj=traj,
+                       poses=v.poses[: v.counter].cpu(), disps=v.disps[: v.counter].cpu())
+    repeat = repeat_of(np, runs, trajs)
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -919,7 +974,7 @@ def terminate_path(torch, np, kernels, droid, out_dir):
     )
     log(f"  profile: {profile_res}")
     return dict(runs=runs, repeat=repeat, profile=profile_res, keyframes=droid.counter,
-                ok=all(r["ok"] for r in runs) and repeat["ok"])
+                ok=all(r["ok"] for r in runs) and repeat["ok"]), ref
 
 
 WEIGHTS = ROOT / "weights" / "droid_synth.msgpack"
@@ -1641,6 +1696,234 @@ def training(torch, np, port, seed: int, out_dir):
     return dict(card_vs_cpu=vs_cpu, defaults=defaults, learns=learn, resume=resume)
 
 
+# -----------------------------------------------------------------------------
+# phase 10: the distributed paths as 1-rank groups
+# -----------------------------------------------------------------------------
+
+# 10a: the sharded terminate against the single-device one, within the
+# bounds that tests/test_torch_droid_mesh.py sets for the same comparison at
+# the same compute dtype (copied: this script imports nothing of the tests).
+# SHARDED_VS_SINGLE_TOL: the small replay's (f32) terminate against the same
+# Droid's single-device terminate, absolute (its terminate(stream) within
+# phase 4's 5e-3, as the filler amplifies); the bench configuration's (bf16,
+# where the single-device BA stores the Schur blocks E in bf16 and the
+# sharded one in f32) against phase 6's, relative to the largest |pose| and
+# |disparity| of phase 6's run. SHARDED_VS_F32_TOL: the bench sharded
+# terminate against the same Droid's single-device terminate with E stored
+# in f32, absolute
+SHARDED_VS_SINGLE_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (0.02, 0.02)}  # (poses, disps)
+SHARDED_VS_F32_TOL = 1e-4
+STREAM_TOL = 5e-3
+# 10b: one optimizer step of apps/train.py at phase 9b's shapes (batch 2, 4
+# frames at 64x96, 3 iterations); --seed 0 draws the default graph and one
+# pass, and the checkpoint of step 1 holds the parameters
+DP_ARGV = ["--synthetic", "--steps", "1", "--batch", "2", "--n_frames", "4", "--iters", "3", "--crop", "64", "96",
+           "--pool", "0", "--seed", "0", "--ckpt_every", "1", "--name", "dp"]
+ALLREDUCE_REPS = 20
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def one_rank_groups(torch):
+    """The default process group, NCCL on this card, world size 1, at a free
+    port on 127.0.0.1, and a gloo group of the same rank for CPU tensors:
+    {"cuda": group, "cpu": group}."""
+    import datetime
+
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120), device_id=dev)
+    return {"cuda": dist.group.WORLD, "cpu": dist.new_group(backend="gloo")}
+
+
+def sharded_terminate(torch, np, kernels, Droid, DroidConfig, init_params, seed: int, groups, ref):
+    """Phase 10a: phase 4's replay with each Droid's BA sharded over its
+    device's group (held to phase 4's bounds, and each device's terminate
+    to the same Droid's single-device one within the f32
+    SHARDED_VS_SINGLE_TOL, its terminate(stream) within STREAM_TOL); then
+    phase 5's frames at the bench configuration tracked by Droid(ba_mesh=)
+    on the card, warm_terminate(), and terminate() twice: the two must
+    repeat, launch the split pair 4 x 19 x chunks times each, agree with
+    phase 6's single-device terminate within the bf16
+    SHARDED_VS_SINGLE_TOL, and with the same Droid's single-device
+    terminate with the Schur blocks E stored in f32, as the sharded BA
+    stores them, within SHARDED_VS_F32_TOL."""
+    from droid_slam_tpu_torch.ops import ba as ba_ops
+
+    t0 = time.perf_counter()
+    small = small_replay(torch, np, Droid, DroidConfig, init_params, seed, meshes=groups)
+    small_s = time.perf_counter() - t0
+    tol32 = SHARDED_VS_SINGLE_TOL[SMALL_CONFIG["compute_dtype"]][0]
+    small["vs_single_ok"] = all(term <= tol32 and fill <= STREAM_TOL
+                                for term, fill in small["vs_single_device"].values())
+
+    cfg = DroidConfig(**BENCH_CONFIG)
+    droid = Droid(cfg, params=init_params(seed), device=torch.device("cuda"), ba_mesh=groups["cuda"])
+    frames, intr = bench_frames(torch, np, cfg, seed)
+    t0 = time.perf_counter()
+    for t in range(ref["frames"]):
+        droid.track(t, frames[t % len(frames)], intrinsics=intr)
+    droid.sync()
+    track_s = time.perf_counter() - t0
+    tracked_diff = float((droid.poses.cpu() - ref["tracked_poses"]).abs().max()) \
+        if droid.counter == ref["frames"] else float("inf")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    droid.warm_terminate()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    runs, trajs = [], []
+    for k in range(2):
+        run, traj = timed_terminate(torch, np, kernels, droid)
+        runs.append(run)
+        trajs.append(traj)
+        if k == 0:
+            v = droid.video
+            poses, disps = v.poses[: v.counter].cpu(), v.disps[: v.counter].cpu()
+    repeat = repeat_of(np, runs, trajs)
+    rel_p, rel_d = SHARDED_VS_SINGLE_TOL[cfg.compute_dtype]
+    same_shape = poses.shape == ref["poses"].shape
+    vs = dict(
+        keyframes=droid.counter, tracked_pose_diff=tracked_diff,
+        same_backend_runs=runs[0]["backend_runs"] == ref["backend_runs"],
+        pose_diff=float((poses - ref["poses"]).abs().max()) if same_shape else float("inf"),
+        disp_diff=float((disps - ref["disps"]).abs().max()) if same_shape else float("inf"),
+        trajectory_diff=float(np.abs(trajs[0] - ref["traj"]).max()) if same_shape else float("inf"),
+        pose_max=float(ref["poses"].abs().max()), disp_max=float(ref["disps"].abs().max()),
+    )
+    vs["tol"] = dict(poses=rel_p * vs["pose_max"], disps=rel_d * vs["disp_max"], relative=(rel_p, rel_d),
+                     compute_dtype=cfg.compute_dtype)
+    vs["ok"] = bool(vs["pose_diff"] <= vs["tol"]["poses"] and vs["disp_diff"] <= vs["tol"]["disps"])
+
+    solve = ba_ops.ba_solve
+    droid.ba_mesh, mesh = None, droid.ba_mesh
+    ba_ops.ba_solve = lambda *a, schur_dtype=None, **k: solve(*a, **k)  # E in f32
+    try:
+        traj_f32 = droid.terminate()
+    finally:
+        ba_ops.ba_solve, droid.ba_mesh = solve, mesh
+    v = droid.video
+    pin = dict(pose_diff=float((poses - v.poses[: v.counter].cpu()).abs().max()),
+               disp_diff=float((disps - v.disps[: v.counter].cpu()).abs().max()),
+               trajectory_diff=float(np.abs(trajs[0] - traj_f32).max()),
+               same_backend_runs=droid.backend_runs == runs[0]["backend_runs"], tol=SHARDED_VS_F32_TOL)
+    pin["ok"] = bool(pin["same_backend_runs"] and max(pin["pose_diff"], pin["disp_diff"]) <= SHARDED_VS_F32_TOL)
+    log(f"  small replay, sharded (card NCCL, CPU gloo): {small['ok']} in {small_s:.1f} s; terminate and "
+        f"terminate(stream) vs the same Droid's single-device ones {small['vs_single_device']} (bounds {tol32}, "
+        f"{STREAM_TOL})")
+    log(f"  bench: {droid.counter} keyframes tracked in {track_s:.1f} s (tracked poses vs phase 5: "
+        f"{tracked_diff:.3e}); warm_terminate {warm_s:.3f} s; terminate walls "
+        + ", ".join(f"{r['wall_s']:.3f}" for r in runs) + " s")
+    log(f"  vs phase 6's single-device terminate: {vs}")
+    log(f"  vs the single-device terminate with E in f32: {pin}")
+    return dict(small_replay=small, small_s=small_s, track_s=track_s, warm_terminate_s=warm_s, runs=runs,
+                repeat=repeat, vs_single_device=vs, vs_single_device_f32=pin,
+                ok=bool(small["ok"] and small["vs_single_ok"] and all(r["ok"] for r in runs) and repeat["ok"]
+                        and vs["ok"] and pin["ok"]))
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """cuDNN's deterministic algorithms and PyTorch's deterministic mode
+    (warn only: the warnings name the operations that have no
+    deterministic implementation), the previous settings restored after."""
+    import warnings
+
+    import torch.utils.deterministic as tud
+
+    prev = (torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled(),
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark, tud.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    tud.fill_uninitialized_memory = False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev[2], prev[3]
+        tud.fill_uninitialized_memory = prev[4]
+
+
+def data_parallel_training(torch, np, port, seed: int, groups):
+    """Phase 10b: one optimizer step of apps/train.py's train() at phase
+    9b's shapes through the 1-rank NCCL group against the same step without
+    a group, in deterministic mode: the parameters must be bit for bit
+    equal (a 1-rank all-reduce and a division by 1 change nothing), and the
+    group's step must launch corr_level_f32 and the backward. Then the flat
+    gradient all-reduce at full width (every DroidNet parameter), timed
+    with CUDA events."""
+    import tempfile
+
+    args = port.train_app.parser().parse_args(DP_ARGV)
+    dev = torch.device("cuda")
+
+    def step(group):
+        db = port.SyntheticDataset(n_frames=args.n_frames, image_size=tuple(args.crop), seed=seed, pool=0)
+        with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+            port.kernels.reset_launches()
+            t0 = time.perf_counter()
+            hist = port.train_app.train(args, db, dev, log=lambda msg: None, group=group)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(port.kernels.DTYPE_LAUNCHES)
+            params = port.checkpoints.load_params("checkpoints/dp_000001.pth")
+        return hist, launches, params, wall
+
+    with deterministic(torch) as caught:
+        plain = step(None)
+        grouped = step(groups["cuda"])
+    notes = sorted({str(w.message).split("\n")[0][:160] for w in caught})
+    differ = [k for k in plain[2] if not torch.equal(plain[2][k], grouped[2][k])]
+    res = dict(
+        passes=[h["passes"] for h in grouped[0]], losses=dict(plain=plain[0][0]["metrics"]["loss"],
+                                                             group=grouped[0][0]["metrics"]["loss"]),
+        walls_s=dict(plain=plain[3], group=grouped[3]), launches_group=grouped[1], launches_plain=plain[1],
+        params=len(plain[2]), params_differing=differ, nondeterministic_warnings=notes,
+    )
+
+    model = port.DroidNet().to(dev)
+    grads = {n: torch.randn_like(p) for n, p in model.named_parameters()}
+    n_values = sum(g.numel() for g in grads.values())
+    reduced = port.trainer.allreduce_gradients(grads, groups["cuda"])
+    ms = cuda_ms(torch, lambda: port.trainer.allreduce_gradients(grads, groups["cuda"]), reps=ALLREDUCE_REPS)
+    res["allreduce"] = dict(tensors=len(grads), values=n_values, mb=4 * n_values / 1e6, ms=ms,
+                            bitwise=all(torch.equal(reduced[k], g) for k, g in grads.items()))
+    res["ok"] = bool(not differ and res["allreduce"]["bitwise"] and res["losses"]["plain"] == res["losses"]["group"]
+                     and grouped[1].get("corr_level_f32", 0) > 0 and grouped[1].get("corr_backward_f32", 0) > 0
+                     and grouped[1] == plain[1])
+    log(f"  data-parallel step (1 rank) vs plain: {res}")
+    return res
+
+
+def distributed_paths(torch, np, kernels, Droid, DroidConfig, init_params, port, seed: int, ref):
+    """Phase 10: the 1-rank groups, 10a and 10b, and the groups destroyed
+    after, so no process group outlives the phase."""
+    import torch.distributed as dist
+
+    groups = one_rank_groups(torch)
+    try:
+        log("phase 10a: sharded terminate, Droid(ba_mesh=) on a 1-rank NCCL group")
+        terminate = sharded_terminate(torch, np, kernels, Droid, DroidConfig, init_params, seed, groups, ref)
+        log("phase 10b: data-parallel training step on the 1-rank NCCL group")
+        training = data_parallel_training(torch, np, port, seed, groups)
+    finally:
+        dist.destroy_process_group()
+    return dict(terminate=terminate, training=training, ok=terminate["ok"] and training["ok"])
+
+
 def main(argv=None) -> int:
     global LOG_PATH
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1738,7 +2021,7 @@ def main(argv=None) -> int:
     main_res, droid = main_path(torch, np, kernels, Droid, DroidConfig, init_params, args.seed, args.out)
 
     log("phase 6: terminate path, Droid.terminate() at the bench configuration")
-    term_res = terminate_path(torch, np, kernels, droid, args.out)
+    term_res, term_ref = terminate_path(torch, np, kernels, droid, args.out)
     del droid
 
     log("phase 7: synthetic protocol with the shipped weights")
@@ -1762,6 +2045,13 @@ def main(argv=None) -> int:
     train["wall_s"] = time.perf_counter() - t0 + bwd_wall
     train["backward_cases"] = bwd_cases
     log(f"  phase 9 wall: {train['wall_s']:.1f} s (9a {bwd_wall:.1f} s)")
+
+    log("phase 10: the distributed paths as 1-rank groups")
+    t0 = time.perf_counter()
+    term_ref["backend_runs"] = term_res["runs"][0]["backend_runs"]
+    dist_res = distributed_paths(torch, np, kernels, Droid, DroidConfig, init_params, port, args.seed, term_ref)
+    dist_res["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 10 wall: {dist_res['wall_s']:.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1866,7 +2156,7 @@ def main(argv=None) -> int:
             build_s=build_s, sass=sass, cases=cases, split_cases=split_cases, segment_cases=seg_cases,
             small_replay=small,
             main_path=main_res, terminate_path=term_res, synthetic_protocol=proto, host_engine=host,
-            training=train, kernels=kernel_rows,
+            training=train, distributed=dist_res, kernels=kernel_rows,
         ), indent=1))
 
     failed = [f"{f}: no tensor-core instructions" for f, k in tile_mma.items() if k == 0]
@@ -1926,6 +2216,13 @@ def main(argv=None) -> int:
                       "(iid, N=208)")
     failed += [f"training {part}" for part in ("card_vs_cpu", "defaults", "learns", "resume")
                if not train[part]["ok"]]
+    dt, dd = dist_res["terminate"], dist_res["training"]
+    failed += [f"phase 10a {part}" for part, ok in (
+        ("small replay", dt["small_replay"]["ok"]), ("small replay vs single-device", dt["small_replay"]["vs_single_ok"]),
+        ("terminate runs", all(r["ok"] for r in dt["runs"])),
+        ("repeat", dt["repeat"]["ok"]), ("vs single-device", dt["vs_single_device"]["ok"])) if not ok]
+    if not dd["ok"]:
+        failed.append("phase 10b data-parallel step")
     if failed:
         print("chip_smoke: FAILED: " + "; ".join(failed), file=sys.stderr)
         return 1
@@ -1970,6 +2267,16 @@ def main(argv=None) -> int:
         f"{td['launches'].get('corr_level_f32')} corr_backward {td['launches'].get('corr_backward_f32')}; "
         f"learns: loss {tl['losses'][0]:.3f} -> {tl['losses'][-1]:.3f} (ratio {tl['ratio']:.3f}); "
         f"resume: bitwise state, step loss rel err {train['resume']['loss_rel_err']:.1e}")
+    vs, pin, ar = dt["vs_single_device"], dt["vs_single_device_f32"], dd["allreduce"]
+    log(f"distributed paths (phase 10, {dist_res['wall_s']:.1f} s, 1-rank groups): sharded terminate "
+        f"{vs['keyframes']} keyframes, warm_terminate {dt['warm_terminate_s']:.3f} s, walls "
+        + ", ".join(f"{r['wall_s']:.3f}" for r in dt["runs"]) + f" s, corr_slab/corr_window launches "
+        f"{dt['runs'][0]['launches']['corr_slab']}/{dt['runs'][0]['launches']['corr_window']}, repeat "
+        f"{dt['repeat']['trajectory_max_diff']:.1e}; vs single-device poses {vs['pose_diff']:.3e} "
+        f"(bound {vs['tol']['poses']:.3e}), disps {vs['disp_diff']:.3e} (bound {vs['tol']['disps']:.3e}); "
+        f"vs single-device with E in f32 poses {pin['pose_diff']:.3e}, disps {pin['disp_diff']:.3e} "
+        f"(bound {pin['tol']:.0e}); small replay (f32) vs single-device {dt['small_replay']['vs_single_device']['cuda']}; "
+        f"data-parallel step bitwise = plain; gradient all-reduce {ar['mb']:.2f} MB in {ar['ms']:.4f} ms")
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

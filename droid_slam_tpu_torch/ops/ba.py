@@ -271,6 +271,7 @@ def ba_iteration_dense_window(
     lm: float = 1e-4,
     ep: float = 0.1,
     alpha: float = 0.05,
+    motion_only: bool = False,
     schur_dtype: torch.dtype = torch.float32,
 ):
     """One GN iteration with a dense windowed Schur complement
@@ -280,7 +281,9 @@ def ba_iteration_dense_window(
     and S = Σ_k E_k Q_k E_kᵀ is one contraction. ``schur_dtype`` is the
     storage dtype of E; the contractions accumulate in f32. The RGB-D prior
     adds ``alpha`` to the depth diagonal where ``disps_sens`` > 0. Every
-    valid edge must satisfy kf0 ≤ ii < kf0 + kwin.
+    valid edge must satisfy kf0 ≤ ii < kf0 + kwin. With ``motion_only``
+    only the poses move: the damped pose system alone is solved, with no
+    refinement step, as in the JAX package.
     """
     F = poses.shape[0]
     ht, wd = disps.shape[-2:]
@@ -298,6 +301,10 @@ def ba_iteration_dense_window(
     ii_r = ii - t0
     jj_r = jj - t0
     Hm, v, live, live6 = _assemble_pose_system(blocks, ii_r, jj_r, Pw, t0, t1)
+
+    if motion_only:
+        dx = cholesky_solve(_damp(Hm, lm, ep, live6), v.reshape(Pw * 6, 1)).reshape(Pw, 6)
+        return lie.retr(poses, _place_rows(dx * live[:, None], t0, F)), disps
 
     # ---- depth system over the kwin-frame window ----
     k_rel = ii - kf0

@@ -3,7 +3,8 @@
 
 Counterpart of the JAX package's ``runtime/backend.py``: a fresh low-memory
 factor graph capped at 16·t edges, proximity edges over all keyframes,
-then ``update_lowmem``.
+then ``update_lowmem``, on one device or edge-sharded over a process
+group.
 """
 
 from __future__ import annotations
@@ -24,12 +25,19 @@ def _chunk_ceil(n: int, chunk: int = 256, floor: int = 64) -> int:
 
 class DroidBackend:
     """Global BA over ``video``'s keyframes with ``update_op`` (the
-    :class:`..models.update.UpdateModule` in the compute dtype)."""
+    :class:`..models.update.UpdateModule` in the compute dtype).
 
-    def __init__(self, update_op, video, config):
+    ``mesh`` (optional) is a ``torch.distributed`` process group, the
+    counterpart of the JAX package's mesh with a ``"ba"`` axis: every
+    global-BA solve then runs edge-sharded over its ranks
+    (:mod:`..parallel.sharded_ba`), each rank running this backend on the
+    same state."""
+
+    def __init__(self, update_op, video, config, mesh=None):
         self.update_op = update_op
         self.video = video
         self.config = config
+        self.mesh = mesh
 
     def __call__(self, steps: int = 12) -> Tuple[int, int]:
         """Run ``steps`` global-BA iterations; returns (edges, chunks): the
@@ -61,6 +69,6 @@ class DroidBackend:
             beta=cfg.beta,
         )
         n_edges = graph.num_active
-        n_chunks = graph.update_lowmem(steps=steps)
+        n_chunks = graph.update_lowmem(steps=steps, mesh=self.mesh)
         graph.clear_edges()
         return n_edges, n_chunks

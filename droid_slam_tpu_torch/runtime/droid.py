@@ -17,8 +17,11 @@ math and the state layout:
   frame; ``terminate`` runs on that video, once.
 
 ``visualize=True`` starts a :class:`..utils.visualization.VisualizerThread`
-(an Open3D window where open3d imports, headless otherwise). The sharded BA
-is a later slice of the port (ROADMAP.md, queue 1).
+(an Open3D window where open3d imports, headless otherwise). ``ba_mesh``, a
+``torch.distributed`` process group, runs terminate's global BA
+edge-sharded over its ranks (:mod:`..parallel.sharded_ba`); every rank
+tracks the same frames, and since the port's kernels repeat bit for bit the
+ranks' replicated states stay identical.
 """
 
 from __future__ import annotations
@@ -70,7 +73,10 @@ class Droid:
     ``fused`` picks the tracking engine (module docstring); the host engine
     keeps the JAX package's dtypes: f32 encoders, probe, video features and
     per-edge hidden state, with only the update operator in
-    ``config.compute_dtype``.
+    ``config.compute_dtype``. ``ba_mesh`` (optional) is a
+    ``torch.distributed`` process group whose backend carries ``device``:
+    terminate's global BA then runs sharded over its ranks (the JAX
+    package's mesh with a ``"ba"`` axis).
     """
 
     def __init__(
@@ -80,11 +86,13 @@ class Droid:
         weights: Optional[str] = None,
         device=None,
         fused: bool = True,
+        ba_mesh=None,
         visualize: bool = False,
         vis_refresh_hz: float = 2.0,
     ):
         self.config = config
         self.device = resolve_device(device)
+        self.ba_mesh = ba_mesh
         if params is None:
             params = load_weights(weights) if weights is not None else init_params(0)
         net = DroidNet()
@@ -214,6 +222,43 @@ class Droid:
         return v
 
     @torch.no_grad()
+    def warm_terminate(self, expected_keyframes: Optional[int] = None) -> None:
+        """Pay terminate's first-use costs ahead of time, on a throwaway
+        state: the global BA (with ``ba_mesh`` if one was given) and one
+        trajectory-filler batch on a video of ``expected_keyframes``
+        keyframes (default: the buffer less 2, clamped to [2, buffer − 2])
+        with jittered poses, so proximity selection fills the same 16·t
+        edge budget as a long session. The live state is not touched.
+
+        The JAX package's counterpart precompiles XLA programs of the
+        quantised shapes. The port compiles nothing per shape; its first
+        use pays the nvcc build of the kernels (``ops/kernels.py``, seconds
+        per source on a cold build directory) and cuDNN's first calls of
+        the update operator's and the encoder's convolutions, which this
+        warms. One backend pass of 2 steps runs what the 7- and 12-step
+        passes run."""
+        cfg = self.config
+        t = cfg.buffer - 2 if expected_keyframes is None else int(expected_keyframes)
+        t = min(max(t, 2), cfg.buffer - 2)
+        v = VideoState(cfg, self.device)
+        v.counter = t
+        rng = np.random.default_rng(0)
+        tw = np.cumsum(0.01 * rng.standard_normal((cfg.buffer, 6)), 0).astype(np.float32)
+        v.poses = lie.retr(v.poses, torch.from_numpy(tw).to(self.device))
+        h, w = cfg.feat_size
+        v.intrinsics[:] = torch.tensor([1.2 * w, 1.2 * w, w / 2, h / 2], device=self.device)
+        DroidBackend(self._update_op, v, cfg, mesh=self.ba_mesh)(2)
+        batch = min(16, cfg.buffer - t)
+        if batch >= 1:
+            v.tstamp = torch.arange(cfg.buffer, dtype=torch.float32, device=self.device)
+            H, W = cfg.image_size
+            intr_full = np.asarray([1.2 * W, 1.2 * W, W / 2, H / 2], np.float32)
+            dummy = np.zeros((H, W, 3), np.uint8)
+            stream = [(k + 0.5, dummy, intr_full) for k in range(batch)]
+            PoseTrajectoryFiller(self.net, self._update_op, v, cfg)(iter(stream))
+        self.sync()
+
+    @torch.no_grad()
     def terminate(self, stream=None) -> np.ndarray:
         """Global BA (7 then 12 steps) and, with ``stream`` (yielding
         (tstamp, image, intrinsics) for every frame), the trajectory fill.
@@ -230,7 +275,7 @@ class Droid:
         else:
             del self.frontend
             v = self.video
-        backend = DroidBackend(self._update_op, v, self.config)
+        backend = DroidBackend(self._update_op, v, self.config, mesh=self.ba_mesh)
         self.backend_runs = [backend(7), backend(12)]
         # one refresh of the optimised map for the visualiser's consumers
         if self.visualizer is not None:

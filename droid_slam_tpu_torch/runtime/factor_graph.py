@@ -34,11 +34,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.update import upsample_disp
 from ..ops import ba as ba_ops
 from ..ops import corr as corr_ops
 from ..ops import projective as pops
+from ..parallel.sharded_ba import ShardedBAPlan, sharded_ba_solve
 from .fused import _set_rows
 from .video import persist_window, read_window
 
@@ -417,13 +419,17 @@ class FactorGraph:
         v.dirty[int(active_ii.min()) : t1] = True
 
     def _lowmem_step(self, edges: EdgeState, pairs, t0: int, t1: int, window: int, chunk: int,
-                     itrs: int, EP: float, lm: float = 1e-5, ep_ba: float = 1e-2) -> None:
+                     itrs: int, EP: float, lm: float = 1e-5, ep_ba: float = 1e-2,
+                     do_ba: bool = True) -> None:
         """One global-BA iteration (factor_graph.py:255-302): the update
         operator over chunks of ``chunk`` edges with on-the-fly split
         correlation, the graph aggregation over all edges at once, then the
         block-sparse BA with lm 1e-5, ep 1e-2 and the E blocks stored in
         the compute dtype. Updates ``edges``, the video and the damping in
-        place."""
+        place. Without ``do_ba`` the poses and disparities pass through and
+        the caller runs the sharded BA on ``edges``' targets and weights and
+        the damping (``disps_up`` is then upsampled from the disparities
+        before that solve, as in the JAX package)."""
         v = self.video
         ii, jj, valid = edges.ii, edges.jj, edges.valid
         N = ii.shape[0]
@@ -460,26 +466,35 @@ class FactorGraph:
         touched = touched.index_add_(0, ii.clamp(0, B - 1), valid.long()) > 0
         self.damping = torch.where(touched[:, None, None], eta_all, self.damping)
 
-        prob = ba_ops.BAProblem(
-            target=edges.target, weight=edges.weight, eta=0.2 * self.damping + EP,
-            ii=ii, jj=jj, edge_valid=valid, t0=t0, t1=t1, pairs=pairs,
-        )
-        v.poses, v.disps = ba_ops.ba_solve(
-            v.poses, v.disps, v.intrinsics[0], v.disps_sens, prob, window,
-            iterations=itrs, lm=lm, ep=ep_ba, schur_dtype=cdt,
-        )
+        if do_ba:
+            prob = ba_ops.BAProblem(
+                target=edges.target, weight=edges.weight, eta=0.2 * self.damping + EP,
+                ii=ii, jj=jj, edge_valid=valid, t0=t0, t1=t1, pairs=pairs,
+            )
+            v.poses, v.disps = ba_ops.ba_solve(
+                v.poses, v.disps, v.intrinsics[0], v.disps_sens, prob, window,
+                iterations=itrs, lm=lm, ep=ep_ba, schur_dtype=cdt,
+            )
         if self.upsample:
             up_all = upsample_disp(v.disps, upmask.float())
             v.disps_up = torch.where(touched[:, None, None], up_all, v.disps_up)
 
     def update_lowmem(self, t0: int = 1, t1: Optional[int] = None, itrs: int = 2, steps: int = 8,
-                      EP: float = 1e-7) -> int:
+                      EP: float = 1e-7, mesh=None) -> int:
         """``steps`` global-BA iterations with on-the-fly correlation
         (factor_graph.py:255-302), over the edge slots up to the highest
         valid one. The JAX package rounds that prefix up to whole chunks
         for its static shapes; the slots past it are invalid and change
         nothing, so the port's last chunk is just shorter. Returns the
-        number of chunks per step (0 if nothing ran)."""
+        number of chunks per step (0 if nothing ran).
+
+        With ``mesh``, a ``torch.distributed`` process group whose ranks
+        all run this call on the same state, the GN solve of every step is
+        the edge-sharded one (:func:`..parallel.sharded_ba.sharded_ba_solve`,
+        in f32): the update operator gives the targets and weights as
+        usual, then the linearisation and the Schur reduction are split
+        over the ranks with one all-reduce of the pose system per
+        iteration."""
         cfg = self.video.config
         # cap the chunk by the correlation working set, as the JAX package
         # does: about 1.2 GB of a [chunk, h, w, h·w] block in the compute
@@ -501,12 +516,27 @@ class FactorGraph:
             return 0
         n_used = int(occupied.max()) + 1
         edges = self.edges.prefix(n_used)
-        pairs = ba_ops.SchurPairs.build(
-            self.ii[:n_used], self.jj[:n_used], self.valid[:n_used], t0, t1, window,
-            device=self.device,
-        )
+        v = self.video
+        if mesh is None:
+            pairs = ba_ops.SchurPairs.build(
+                self.ii[:n_used], self.jj[:n_used], self.valid[:n_used], t0, t1, window,
+                device=self.device,
+            )
+        else:
+            pairs = None
+            plan = ShardedBAPlan.build(
+                self.ii[:n_used], self.jj[:n_used], self.valid[:n_used], dist.get_world_size(mesh), t,
+                t0, t1, shard=dist.get_rank(mesh),
+            )
+            placed = plan.place(self.device)  # the graph's index tensors, once
         for _ in range(steps):
-            self._lowmem_step(edges, pairs, t0, t1, window, chunk, itrs, EP)
+            self._lowmem_step(edges, pairs, t0, t1, window, chunk, itrs, EP, do_ba=mesh is None)
+            if mesh is not None:
+                v.poses, v.disps = sharded_ba_solve(
+                    mesh, plan, edges.target, edges.weight, 0.2 * self.damping + EP, v.poses,
+                    v.disps, v.intrinsics[0], v.disps_sens, t0, t1, window, iterations=itrs,
+                    constants=placed,
+                )
         self.video.dirty[:t] = True
         # write the per-edge state back (the slots past n_used are invalid)
         for name in ("net", "target", "weight"):

@@ -119,12 +119,15 @@ def flow_loss(
     disps_steps: Tensor,  # [S, B, F, H, W] estimated, upsampled (full resolution)
     intrinsics: Tensor,  # [B, F, 4] full resolution
     gamma: float = 0.9,
+    counts: Optional[Dict[str, Tensor]] = None,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """End-point error of the induced flow against the ground truth's on
     the adjacent-frame graph, at full image resolution as the reference
     computes it (losses.py:89-118, train.py:112). Each step's transform is
     recomputed in the backward pass (checkpointed), so no per-pixel tensor
-    is kept across steps; the metrics read the last step only."""
+    is kept across steps; the metrics read the last step only. ``counts``,
+    where given, receives ``valid_px``, the metrics' denominator, so that
+    data-parallel ranks can combine them."""
     S = poses_steps.shape[0]
     F = Ps.shape[1]
     dev = Ps.device
@@ -152,7 +155,10 @@ def flow_loss(
         coords1, val1 = transform(poses_steps[-1], disps_steps[-1])
         last_v = ((val0 * val1)[..., 0] > 0.5).reshape(-1)
         last_epe = _safe_norm(coords1 - coords0).reshape(-1)
-        denom = last_v.sum().clamp(min=1).float()
+        n_valid = last_v.sum().float()
+        if counts is not None:
+            counts["valid_px"] = n_valid
+        denom = n_valid.clamp(min=1)
         zero = torch.zeros((), device=dev)
         metrics = {
             "f_error": torch.where(last_v, last_epe, zero).sum() / denom,

@@ -2,27 +2,37 @@
 losses → gradient guards, clipping and AdamW on a learning-rate schedule
 (PyTorch).
 
-Counterpart of the JAX package's ``train/trainer.py`` (reference train.py),
-single process. The optimizer computes what the JAX package's optax chain
-computes: non-finite gradient entries zeroed, then ``clip_by_global_norm``
-(scale by clip/norm when norm ≥ clip, no epsilon), then AdamW (decoupled
-decay on the old parameter, eps outside the square root: torch's
-``AdamW``) with the learning rate of optax's schedules written out. The
-multi-process mesh helpers of the JAX trainer belong to the sharded
-backend's item (ROADMAP.md, queue 1).
+Counterpart of the JAX package's ``train/trainer.py`` (reference train.py).
+The optimizer computes what the JAX package's optax chain computes:
+non-finite gradient entries zeroed, then ``clip_by_global_norm`` (scale by
+clip/norm when norm ≥ clip, no epsilon), then AdamW (decoupled decay on the
+old parameter, eps outside the square root: torch's ``AdamW``) with the
+learning rate of optax's schedules written out.
+
+Data parallelism runs over a ``torch.distributed`` process group, the
+counterpart of the JAX trainer's mesh with a ``"dp"`` axis: each rank
+trains on its contiguous block of the batch rows (:func:`shard_batch_for_mesh`),
+the parameters start as rank 0's (:func:`replicate_for_mesh`), and the
+gradient all-reduce that XLA inserts in the JAX package is one collective
+of one flat f32 buffer per optimizer step (:func:`allreduce_gradients`),
+ahead of the optimizer, so the non-finite zeroing and the clip see the
+global gradient.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import math
-from typing import Any, Callable, Dict, Iterable, Mapping, Tuple
+from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.droid_net import DroidNet, TrainingOutputs
 from ..ops import lie
+from ..parallel.groups import carries, check_device
 from . import losses as L
 
 Tensor = torch.Tensor
@@ -159,11 +169,24 @@ def make_train_step(cfg: TrainConfig, ii: np.ndarray, jj: np.ndarray):
     grads) → state`` (one optimizer update; ``step`` counts batches).
 
     The batch may carry a randomised graph ``ii``/``jj``/``edge_valid``
-    padded to one length; ``ii``/``jj`` given here are the default graph."""
+    padded to one length; ``ii``/``jj`` given here are the default graph.
+    ``train_step.grad``'s optional ``counts`` dict receives the
+    denominators of the ratio metrics (:func:`reduce_metrics`).
+
+    ``train_step.grad(..., mesh=group)`` (a process group of D ranks, each
+    on its equal share of the global batch) returns the gradient of the
+    rank's part of the global mean loss, its local mean loss / D, which
+    :func:`allreduce_gradients` sums. Every loss term is a mean over a
+    count that grows with the batch, so each entry's gradient is then the
+    one the whole batch gives it. Dividing after the reduction instead
+    would not do: the update operator's ``grad_clip`` zeroes the entries
+    of its gradient above 0.01, and the gradient of the local mean is D
+    times the whole batch's in every entry, so it would zero others. The
+    metrics stay the local batch's."""
     ii = torch.as_tensor(np.asarray(ii), dtype=torch.long)
     jj = torch.as_tensor(np.asarray(jj), dtype=torch.long)
 
-    def loss_fn(model: DroidNet, batch: Mapping[str, Any]):
+    def loss_fn(model: DroidNet, batch: Mapping[str, Any], counts: Optional[Dict[str, Tensor]] = None):
         dev = next(model.parameters()).device
         b = batch_tensors(batch, dev)
         images = b["images"]  # [B, F, H, W, 3] RGB
@@ -181,14 +204,16 @@ def make_train_step(cfg: TrainConfig, ii: np.ndarray, jj: np.ndarray):
         res, res_m = L.residual_loss(out.residuals, edge_valid=g_valid.repeat(images.shape[0]))
         # the flow loss at full resolution with full-resolution intrinsics,
         # as the reference (train.py:112)
-        flo, flo_m = L.flow_loss(Ps, disps_gt, out.poses, out.disps_up, intrinsics)
+        flo, flo_m = L.flow_loss(Ps, disps_gt, out.poses, out.disps_up, intrinsics, counts=counts)
         total = cfg.w1 * geo + cfg.w2 * res + cfg.w3 * flo
         return total, ({"loss": total, **geo_m, **res_m, **flo_m}, out)
 
-    def grad_step(model: DroidNet, batch: Mapping[str, Any]):
+    def grad_step(model: DroidNet, batch: Mapping[str, Any], counts: Optional[Dict[str, Tensor]] = None,
+                  mesh=None):
         names, params = zip(*model.named_parameters())
-        total, (metrics, out) = loss_fn(model, batch)
-        grads = torch.autograd.grad(total, params)
+        total, (metrics, out) = loss_fn(model, batch, counts)
+        share = total if mesh is None else total / dist.get_world_size(mesh)
+        grads = torch.autograd.grad(share, params)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return dict(zip(names, grads)), metrics, TrainingOutputs(*(x.detach() for x in out))
 
@@ -226,3 +251,121 @@ def make_initial_batch(rng: np.random.Generator, batch: int, n_frames: int,
         "poses_init": init,
         "disps_init": np.ones((batch, n_frames, h, w), np.float32),
     }
+
+
+# -----------------------------------------------------------------------------
+# data parallelism over a process group (the JAX trainer's mesh helpers)
+# -----------------------------------------------------------------------------
+
+_REPLICATED_KEYS = {"ii", "jj", "edge_valid"}  # the graph, shared across the batch
+
+
+def shard_batch_for_mesh(batch: Mapping[str, Any], mesh) -> Dict[str, Any]:
+    """The rows of a global batch that this rank trains on: rank r of D
+    takes the contiguous block [r·B/D, (r+1)·B/D) of every per-sample key
+    (the layout of the JAX package's ``shard_batch_for_mesh``); the graph
+    keys are shared. ``mesh`` is a process group; B must divide by D. In
+    ``apps/train.py`` each rank draws its own local batch instead."""
+    D, r = dist.get_world_size(mesh), dist.get_rank(mesh)
+    out = {}
+    for k, v in batch.items():
+        if k in _REPLICATED_KEYS:
+            out[k] = v
+            continue
+        if v.shape[0] % D:
+            raise ValueError(f"batch of {v.shape[0]} rows ({k}) does not divide over {D} ranks")
+        n = v.shape[0] // D
+        out[k] = v[r * n : (r + 1) * n]
+    return out
+
+
+def host_local_slice(arr, local_rows: Optional[int] = None):
+    """This rank's rows of an output of its own grad step: the output
+    itself. In the JAX package a jitted output may span other processes'
+    devices and this picks the local rows; a rank of the port computes
+    only its own rows, so this is the identity (``local_rows`` is checked,
+    where given)."""
+    if local_rows is not None and arr.shape[0] != local_rows:
+        raise ValueError(f"{arr.shape[0]} rows, expected this rank's {local_rows}")
+    return arr
+
+
+def rendezvous(name: str, group=None, timeout_s: float = 3600.0) -> None:
+    """A barrier of the group's ranks that fails after ``timeout_s``
+    seconds instead of waiting for ever: gloo's monitored barrier, which
+    names the rank that did not arrive, or NCCL's barrier on this rank's
+    device, under the group's own timeout. ``name`` labels the failure."""
+    try:
+        if carries(group, "cpu"):
+            dist.monitored_barrier(group=group, timeout=datetime.timedelta(seconds=timeout_s))
+        else:
+            dist.barrier(group=group, device_ids=[torch.cuda.current_device()])
+    except RuntimeError as e:
+        raise RuntimeError(f"rendezvous {name!r} failed: {e}") from e
+
+
+def _flat(tensors, device) -> Tensor:
+    return torch.cat([t.detach().reshape(-1).to(device=device, dtype=torch.float32) for t in tensors])
+
+
+def _unflat(flat: Tensor, like):
+    out, at = [], 0
+    for t in like:
+        out.append(flat[at : at + t.numel()].reshape(t.shape).to(t.dtype))
+        at += t.numel()
+    return out
+
+
+def replicate_for_mesh(model: torch.nn.Module, mesh) -> torch.nn.Module:
+    """Every rank's model takes rank 0's parameters and buffers: one
+    broadcast of one flat f32 buffer (the JAX package places the state
+    replicated on the mesh)."""
+    state = list(model.state_dict().values())
+    dev = state[0].device
+    check_device(mesh, dev)
+    flat = _flat(state, dev)
+    src = dist.get_process_group_ranks(mesh if mesh is not None else dist.group.WORLD)[0]
+    dist.broadcast(flat, src=src, group=mesh)
+    with torch.no_grad():
+        for t, v in zip(state, _unflat(flat, state)):
+            t.copy_(v)
+    return model
+
+
+def allreduce_gradients(grads: Mapping[str, Tensor], mesh) -> Dict[str, Tensor]:
+    """The sum over the group's ranks of each gradient: one all-reduce
+    (SUM) of one flat f32 buffer. Each rank's gradient is that of its part
+    of the global mean loss (``train_step.grad(..., mesh=)``), so the sum
+    is the gradient of the global mean. Summing a step's restart passes
+    first and reducing once is linear, so it gives what the JAX package's
+    per-pass reduction gives, up to float order."""
+    names = list(grads)
+    tensors = [grads[k] for k in names]
+    check_device(mesh, tensors[0].device)
+    flat = _flat(tensors, tensors[0].device)
+    dist.all_reduce(flat, group=mesh)
+    return dict(zip(names, _unflat(flat, tensors)))
+
+
+# metrics whose denominator is a count that differs across ranks (the valid
+# pixels of flow_loss); every other metric is a mean over an equal count
+RATIO_METRICS = {"f_error": "valid_px", "1px": "valid_px"}
+
+
+def reduce_metrics(metrics: Mapping[str, Tensor], counts: Mapping[str, Tensor], mesh) -> Dict[str, Tensor]:
+    """The global batch's metrics from each rank's, in one all-reduce: a
+    mean over the ranks for the means over equal counts (the masked means
+    of the losses share one denominator when the local batches are equal),
+    and for the ratio metrics (:data:`RATIO_METRICS`) the summed numerators
+    over the summed denominators from ``counts``."""
+    names = list(metrics)
+    dev = metrics[names[0]].device
+    check_device(mesh, dev)
+    dens = sorted(set(RATIO_METRICS.values()))
+    parts = [metrics[k] * counts[RATIO_METRICS[k]] if k in RATIO_METRICS else metrics[k] for k in names]
+    flat = _flat(parts + [counts[d] for d in dens], dev)
+    dist.all_reduce(flat, group=mesh)
+    den = dict(zip(dens, flat[len(names):]))
+    D = dist.get_world_size(mesh)
+    return {k: (flat[i] / den[RATIO_METRICS[k]].clamp(min=1) if k in RATIO_METRICS else flat[i] / D)
+            for i, k in enumerate(names)}

@@ -64,6 +64,30 @@ def test_ba_iteration_dense_window_matches_jax(with_sens):
     assert np.abs(np.asarray(want_d) - got_d.numpy()).max() < 1e-4
 
 
+@pytest.mark.parametrize("with_sens", [False, True])
+def test_ba_iteration_dense_window_motion_only_matches_jax(with_sens):
+    """``motion_only``: the damped pose system alone (no refinement
+    step), the disparities untouched, the poses outside [t0, t1) too."""
+    win = _window(12, with_sens)
+    t0, t1, kf0 = 2, 6, 0
+    want_p, want_d = jba.ba_iteration_dense_window(
+        **{k: jnp.asarray(v) for k, v in win.items()},
+        t0=jnp.int32(t0), t1=jnp.int32(t1), kf0=jnp.int32(kf0), window=PW, kwin=KA, motion_only=True,
+    )
+    targs = {k: torch.from_numpy(v) for k, v in win.items()}
+    targs["ii"], targs["jj"] = targs["ii"].long(), targs["jj"].long()
+    got_p, got_d = tba.ba_iteration_dense_window(
+        **targs, t0=torch.tensor(t0), t1=torch.tensor(t1), kf0=torch.tensor(kf0),
+        window=PW, kwin=KA, motion_only=True,
+    )
+    assert np.abs(np.asarray(want_p) - win["poses"]).max() > 1e-3
+    assert np.abs(np.asarray(want_p) - got_p.numpy()).max() < 1e-4
+    np.testing.assert_array_equal(got_d.numpy(), win["disps"])
+    np.testing.assert_array_equal(np.asarray(want_d), win["disps"])
+    outside = np.r_[0:t0, t1:len(win["poses"])]
+    np.testing.assert_array_equal(got_p.numpy()[outside], win["poses"][outside])
+
+
 def test_cholesky_solve_failure_gives_zeros():
     H = torch.tensor([[1.0, 2.0], [2.0, 1.0]])  # indefinite
     b = torch.ones(2, 1)
