@@ -123,7 +123,22 @@ Phases, each of which fails the run:
      through the group against the same step without one, in
      deterministic mode: the parameters bit for bit equal; and the flat
      gradient all-reduce of every DroidNet parameter timed with CUDA
-     events.
+     events;
+  11. the file-based data layer and its apps: (0) whether png.h and
+     jpeglib.h are on the compiler's include path (with both, the native
+     loader, built from native/droid_native.cc, must build), whether it
+     built and why not, whether cv2 imports; (a) 40 frames rendered at
+     480x640 with TartanAir's intrinsics, written (PNG by zlib here) as a
+     TartanAir scene and a demo folder in a temporary directory; where
+     this machine decodes PNG, (b) apps/demo.py's main on the folder at
+     the 384x512 area with the shipped weights and a reconstruction, and
+     (c) apps/evaluate.py --dataset tartanair with --gt pose_left.txt,
+     each trajectory held bit for bit against the same frames fed in
+     memory (a gap within FILE_TOL is recorded); (d) apps/train.py
+     --datapath at the trainer's defaults for 2 optimizer steps (TF32
+     off): finite gradients, corr_level_f32 and corr_backward_f32
+     launched (without a decoder the reader loads each frame's .npy twin
+     and says so).
 
 It prints a `kernels` JSON line (corr_level, corr_slab and corr_window in
 bf16, corr_level_f32, corr_slab_f32 and corr_backward), the card's name
@@ -1924,6 +1939,272 @@ def distributed_paths(torch, np, kernels, Droid, DroidConfig, init_params, port,
     return dict(terminate=terminate, training=training, ok=terminate["ok"] and training["ok"])
 
 
+# -----------------------------------------------------------------------------
+# phase 11: the file-based data layer and its apps
+# -----------------------------------------------------------------------------
+
+# the fixtures: one rendered sequence at TartanAir's frame size, whose focal
+# gives TartanAir's fixed intrinsics (320, 320, 320, 240) (the reader's
+# calib_read), with the synthetic protocol's motion: the flow between
+# consecutive frames spans ~12-140 px at 480x640 (median ~46), so most
+# pairs pass the reader's fmin 8 < flow < fmax 96 filter
+FILE_SIZE = (480, 640)
+FILE_FOCAL = 320.0
+FILE_FRAMES = 40
+FILE_MOTION = dict(t_sigma=0.25, r_sigma=0.02)
+DEMO_SIZE = (384, 512)  # apps/demo.py's default working area, H x W
+TARTAN_SIZE = (384, 512)  # tartanair_stream's frames
+# pose_left.txt holds TartanAir's NED columns, which the reader permutes with
+# [1, 2, 0, 4, 5, 3, 6]; this is the inverse. Translations and depths are
+# stored x DEPTH_SCALE, which the reader divides out
+TARTAN_FROM_CAMERA = [2, 0, 1, 5, 3, 4, 6]
+TARTAN_DEPTH_SCALE = 5.0
+# 11d: apps/train.py --datapath at the JAX trainer's defaults (384x512 crops,
+# 7 frames, 15 iterations, batch 4, 24 edges), 2 optimizer steps from the
+# shipped weights; --seed 0 draws the default graph, then a randomised one
+TARTAN_TRAIN_ARGV = ["--steps", "2", "--seed", "0", "--ckpt_every", "1000000", "--name", "tartan"]
+# 11b-c: the apps' trajectories against the same frames fed in memory: bit
+# for bit; a gap (two f32 Droids in one process once differed by 2e-6,
+# cuDNN's first calls being the suspect) is recorded and held to phase 4's
+# bound
+FILE_TOL = 5e-3
+RECONSTRUCTION_FILES = ("tstamps", "images", "disps", "poses", "intrinsics")
+
+
+def png_bytes(rgb) -> bytes:
+    """An 8-bit RGB PNG of ``rgb`` [H, W, 3] uint8: filter 0 on every row,
+    one zlib IDAT, and IHDR/IDAT/IEND with their CRCs."""
+    import struct
+    import zlib
+
+    h, w, _ = rgb.shape
+    raw = b"".join(b"\x00" + row.tobytes() for row in rgb)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def write_file_fixtures(np, render_sequence, root: Path, seed: int, size=FILE_SIZE, frames: int = FILE_FRAMES,
+                        focal: float = FILE_FOCAL):
+    """Phase 11a: render one sequence and write it twice under ``root``:
+    a TartanAir scene, tartan/env/env/Easy/P000/ with image_left/NNNNNN_left.png
+    (and each frame's .npy twin), depth_left/NNNNNN_left_depth.npy and
+    pose_left.txt; and a demo folder, demo/images/NNNNNN.png with
+    demo/calib.txt in calib/tartan.txt's format. Returns the paths and the
+    rendered sequence."""
+    seq = render_sequence(np.random.default_rng(seed), n_frames=frames, image_size=tuple(size), focal=focal,
+                          **FILE_MOTION)
+    scene = root / "tartan" / "env" / "env" / "Easy" / "P000"
+    imagedir = root / "demo" / "images"
+    for d in (scene / "image_left", scene / "depth_left", imagedir):
+        d.mkdir(parents=True, exist_ok=True)
+    for k in range(frames):
+        png = png_bytes(np.ascontiguousarray(seq["images"][k]))
+        (scene / "image_left" / f"{k:06d}_left.png").write_bytes(png)
+        (imagedir / f"{k:06d}.png").write_bytes(png)
+        np.save(scene / "image_left" / f"{k:06d}_left.npy", seq["images"][k])
+        np.save(scene / "depth_left" / f"{k:06d}_left_depth.npy", seq["depths"][k] * TARTAN_DEPTH_SCALE)
+    poses = seq["poses"].astype(np.float64)
+    poses[:, :3] *= TARTAN_DEPTH_SCALE
+    np.savetxt(scene / "pose_left.txt", poses[:, TARTAN_FROM_CAMERA], delimiter=" ")
+    calib = root / "demo" / "calib.txt"
+    calib.write_text(" ".join(str(float(x)) for x in seq["intrinsics"][0]) + "\n")
+    return dict(seq=seq, tartan_root=root / "tartan", scene=scene, imagedir=imagedir, calib=calib)
+
+
+def decoder_finding(native_loader):
+    """Phase 11-0: what this machine decodes. The headers decide, before any
+    build: with png.h and jpeglib.h on the compiler's include path the
+    native library must build. Then whether it built (the compiler's error
+    where it did not) and whether cv2 imports."""
+    headers = native_loader.decoder_headers()
+    native = native_loader.available()
+    try:
+        import cv2
+
+        cv2_version = cv2.__version__
+    except ImportError:
+        cv2_version = None
+    error = native_loader.build_error() or ""
+    errors = [line.strip() for line in error.splitlines() if "error" in line]
+    res = dict(headers=headers, native=native, build_error=error, cv2=cv2_version,
+               decoder="native" if native else ("cv2" if cv2_version else None))
+    res["ok"] = bool(native or not all(headers.values()))
+    log("  decoders: " + ", ".join(f"{h} {'found' if ok else 'missing'}" for h, ok in headers.items())
+        + f"; native library {'built' if native else 'not built'}"
+        + ("" if native else f" ({errors[0] if errors else error[:200]!r})")
+        + f"; cv2 {cv2_version or 'does not import'}; images decode with {res['decoder'] or 'nothing'}"
+        + ("" if res["ok"] else ": FAILED, the headers are present and the build failed"))
+    return res
+
+
+def _launch_line(kernels) -> str:
+    return ", ".join(f"{k} {n}" for k, n in sorted({**kernels.LAUNCHES, **kernels.DTYPE_LAUNCHES}.items()) if n)
+
+
+def _against(np, traj, ref):
+    diff = float(np.abs(traj - ref).max()) if traj.shape == ref.shape else float("inf")
+    return dict(bitwise=bool(traj.shape == ref.shape and np.array_equal(traj, ref)), max_diff=diff,
+                tol=FILE_TOL, within_tol=diff <= FILE_TOL)
+
+
+def demo_from_files(torch, np, port, fx, root: Path, device: str = "cuda"):
+    """Phase 11b: apps/demo.py's main on the demo folder at the default
+    384x512 area with the shipped weights, --stride 1 and a reconstruction,
+    with the launch counts reset before it and read after it; its
+    trajectory against a Droid of the same configuration fed the rendered
+    frames in memory, resized as the stream resizes them
+    (streams._resize_to_area: the native library, else cv2)."""
+    recon = root / "reconstruction"
+    argv = ["--imagedir", str(fx["imagedir"]), "--calib", str(fx["calib"]), "--weights", str(WEIGHTS),
+            "--stride", "1", "--image_size", *map(str, DEMO_SIZE), "--reconstruction_path", str(recon),
+            "--device", device]
+    torch.cuda.synchronize()
+    port.kernels.reset_launches()
+    traj, rec = port.demo.main(argv)
+    torch.cuda.synchronize()
+    launches, by_type = dict(port.kernels.LAUNCHES), dict(port.kernels.DTYPE_LAUNCHES)
+    line = _launch_line(port.kernels)
+
+    args = port.demo.parser().parse_args(argv)
+    args.upsample = True  # as main does for --reconstruction_path
+    fx0, fy0, cx0, cy0 = np.loadtxt(fx["calib"], delimiter=" ")[:4]
+    stream = []
+    for k, image in enumerate(fx["seq"]["images"]):
+        image, (sx, sy) = port.streams._resize_to_area(image, DEMO_SIZE[0] * DEMO_SIZE[1])
+        stream.append((k, image, np.array([fx0 * sx, fy0 * sy, cx0 * sx, cy0 * sy], np.float32)))
+    droid = port.Droid(port.demo.config_for(args, stream[0][1].shape[:2]), weights=str(WEIGHTS), device=device)
+    for t, image, intr in stream:
+        droid.track(t, image, intrinsics=intr)
+    ref = droid.terminate(iter(stream))
+    files = {name: recon / f"{name}.npy" for name in RECONSTRUCTION_FILES}
+    disps = np.load(files["disps"]) if files["disps"].exists() else np.zeros(1)
+    res = dict(rec, launches=launches, dtype_launches=by_type, vs_in_memory=_against(np, traj, ref),
+               in_memory_keyframes=droid.counter, files=all(p.exists() for p in files.values()),
+               disps_nonzero=float((disps != 0).mean()), finite=bool(np.isfinite(traj).all()))
+    res["ok"] = bool(res["finite"] and traj.shape == (len(stream), 7) and res["vs_in_memory"]["within_tol"]
+                     and res["files"] and res["disps_nonzero"] > 0 and launches["corr_level"] > 0
+                     and launches["corr_slab"] > 0 and launches["corr_window"] > 0)
+    log(f"  demo: {rec['frames']} frames at {rec['image_size'][0]}x{rec['image_size'][1]}, {rec['fps']:.2f} "
+        f"frames/s, terminate {rec['terminate_s']:.3f} s, keyframes {rec['keyframes']} (in memory "
+        f"{droid.counter}); vs in memory {res['vs_in_memory']}; reconstruction files "
+        f"{'all written' if res['files'] else 'MISSING'}, disparities non-zero {res['disps_nonzero']:.3f}; "
+        f"launches {line}: {'ok' if res['ok'] else 'FAILED'}")
+    return res
+
+
+def evaluate_tartanair(torch, np, port, fx, card: str, device: str = "cuda"):
+    """Phase 11c: apps/evaluate.py --dataset tartanair on the scene with
+    --gt pose_left.txt and the shipped weights, the launch counts reset
+    before it and read after it; its trajectory against run_slam on the
+    stream's items built in memory (the rendered frames resized to 384x512
+    as the stream resizes them, 0.8 x TartanAir's intrinsics)."""
+    argv = ["--dataset", "tartanair", "--datapath", str(fx["scene"]), "--gt", str(fx["scene"] / "pose_left.txt"),
+            "--weights", str(WEIGHTS), "--device", device]
+    torch.cuda.synchronize()
+    port.kernels.reset_launches()
+    res = port.evaluate.main(argv)
+    torch.cuda.synchronize()
+    launches, line = dict(port.kernels.LAUNCHES), _launch_line(port.kernels)
+    traj = res.pop("trajectory")
+
+    intr = 0.8 * np.asarray((320.0, 320.0, 320.0, 240.0), np.float32)
+    track = [(k, port.streams._resize_rgb(image, TARTAN_SIZE), intr) for k, image in enumerate(fx["seq"]["images"])]
+    config = port.preset("tartanair", image_size=TARTAN_SIZE)
+    ref, droid, _ = port.evaluate.run_slam(config, str(WEIGHTS), track, track, device=device)
+    res.update(launches=launches, dtype_launches=dict(port.kernels.DTYPE_LAUNCHES),
+               vs_in_memory=_against(np, traj, ref), finite=bool(np.isfinite(traj).all()))
+    res["ok"] = bool(res["finite"] and traj.shape == (len(track), 7) and res["vs_in_memory"]["within_tol"]
+                     and res["n_pairs"] == len(track) and launches["corr_level"] > 0
+                     and launches["corr_slab"] > 0 and launches["corr_window"] > 0)
+    log(f"  evaluate --dataset tartanair: ATE {res['ate_rmse']:.4f} (scale-corrected, pose_left.txt units), "
+        f"scale {res['scale']:.4f}, {res['n_pairs']} pairs, keyframes {res['keyframes']}/{res['frames']}, "
+        f"tracking {res['track_s']:.2f} s, terminate {res['terminate_s']:.2f} s on {card}; vs in memory "
+        f"{res['vs_in_memory']}; launches {line}: {'ok' if res['ok'] else 'FAILED'}")
+    return res
+
+
+def train_tartanair(torch, np, port, fx, decoder, cache_dir: Path, device: str = "cuda", argv=None):
+    """Phase 11d: apps/train.py --datapath on the fixtures' TartanAir root,
+    at the trainer's defaults from the shipped weights, 2 optimizer steps
+    (TARTAN_TRAIN_ARGV), with the launch counts reset before the steps and
+    read after them. Without an image decoder the reader takes each frame's
+    .npy twin (a TartanAir whose image_read loads it), and says so."""
+    args = port.train_app.parser().parse_args(
+        ["--datapath", str(fx["tartan_root"]), "--ckpt", str(WEIGHTS), "--cache_dir", str(cache_dir)]
+        + (TARTAN_TRAIN_ARGV if argv is None else argv))
+    t0 = time.perf_counter()
+    if decoder:
+        db = port.train_app.dataset(args)
+    else:
+        class NpyTartanAir(port.dataset.TartanAir):
+            @staticmethod
+            def image_read(image_file: str):
+                return np.load(image_file[: -len(".png")] + ".npy")
+
+        db = NpyTartanAir(datapath=args.datapath, n_frames=args.n_frames, fmin=args.fmin, fmax=args.fmax,
+                          crop_size=tuple(args.crop), seed=args.process_id, cache_dir=args.cache_dir)
+    graph_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    port.kernels.reset_launches()
+    t0 = time.perf_counter()
+    hist = port.train_app._train(args, db, torch.device(device), log=log)
+    wall = time.perf_counter() - t0
+    launches = dict(port.kernels.DTYPE_LAUNCHES)
+    res = dict(image_read=decoder or "npy (no PNG decoder on this machine)", clips=len(db), graph_s=graph_s,
+               steps=len(hist), passes=[h["passes"] for h in hist], step_walls_s=[h["wall_s"] for h in hist],
+               losses=[h["metrics"]["loss"] for h in hist], wall_s=wall,
+               grads_finite=all(h["grads_finite"] for h in hist),
+               peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches)
+    res["ok"] = bool(res["steps"] == args.steps and res["grads_finite"] and np.isfinite(res["losses"]).all()
+                     and launches.get("corr_level_f32", 0) > 0 and launches.get("corr_backward_f32", 0) > 0)
+    log(f"  train --datapath: image_read {res['image_read']}, {res['clips']} clips (graphs in {graph_s:.1f} s), "
+        f"crop {args.crop[0]}x{args.crop[1]}, {args.n_frames} frames, {args.iters} iterations, batch {args.batch}; "
+        f"passes {res['passes']}, step walls {', '.join(f'{x:.2f}' for x in res['step_walls_s'])} s, losses "
+        f"{', '.join(f'{x:.4f}' for x in res['losses'])}, gradients finite {res['grads_finite']}, peak "
+        f"{res['peak_allocated_gb']:.2f} GB, launches corr_level_f32 {launches.get('corr_level_f32', 0)} "
+        f"corr_backward_f32 {launches.get('corr_backward_f32', 0)}: {'ok' if res['ok'] else 'FAILED'}")
+    return res
+
+
+def file_paths(torch, np, port, seed: int, card: str, device: str = "cuda"):
+    """Phase 11: the decoder finding (11-0), the fixtures (11a), the demo
+    from files (11b) and evaluate --dataset tartanair (11c) where this
+    machine decodes PNG, and TartanAir training (11d). The fixtures live in
+    a temporary directory, removed at the end."""
+    import shutil
+    import tempfile
+
+    log("phase 11-0: what this machine decodes")
+    finding = decoder_finding(port.native_loader)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_files_"))
+    res = dict(decoders=finding)
+    try:
+        t0 = time.perf_counter()
+        fx = write_file_fixtures(np, port.render_sequence, root, seed, FILE_SIZE, FILE_FRAMES, FILE_FOCAL)
+        res["fixtures_s"] = time.perf_counter() - t0
+        log(f"phase 11a: {FILE_FRAMES} frames rendered at {FILE_SIZE[0]}x{FILE_SIZE[1]} (focal {FILE_FOCAL}) and "
+            f"written as a TartanAir scene and a demo folder in {res['fixtures_s']:.1f} s")
+        if finding["decoder"]:
+            log("phase 11b: apps/demo.py on the PNG folder")
+            res["demo"] = demo_from_files(torch, np, port, fx, root, device)
+            log("phase 11c: apps/evaluate.py --dataset tartanair")
+            res["evaluate"] = evaluate_tartanair(torch, np, port, fx, card, device)
+        else:
+            log("phase 11b-c: not run: this machine decodes no PNG (no native library, no cv2)")
+        log("phase 11d: apps/train.py --datapath at the trainer's defaults, 2 steps")
+        res["train"] = train_tartanair(torch, np, port, fx, finding["decoder"], root / "cache", device)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["ok"] = bool(finding["ok"] and res["train"]["ok"]
+                     and all(res[k]["ok"] for k in ("demo", "evaluate") if k in res))
+    return res
+
+
 def main(argv=None) -> int:
     global LOG_PATH
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1945,13 +2226,15 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     from types import SimpleNamespace
 
-    from droid_slam_tpu_torch.apps import evaluate
+    from droid_slam_tpu_torch.apps import demo, evaluate
     from droid_slam_tpu_torch.apps import train as train_app
+    from droid_slam_tpu_torch.data import dataset, native_loader, streams
     from droid_slam_tpu_torch.data.synthetic import SyntheticDataset, render_sequence
     from droid_slam_tpu_torch.models.droid_net import DroidNet, init_params
     from droid_slam_tpu_torch.ops import corr, kernels, lie, segment
     from droid_slam_tpu_torch.ops import projective as pops
     from droid_slam_tpu_torch.runtime import Droid, DroidConfig
+    from droid_slam_tpu_torch.runtime.config import preset
     from droid_slam_tpu_torch.train import checkpoints, trainer
     from droid_slam_tpu_torch.utils import visualization
 
@@ -2058,6 +2341,15 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
 
+    log("phase 11: the file-based data layer and its apps")
+    t0 = time.perf_counter()
+    files_port = SimpleNamespace(native_loader=native_loader, streams=streams, dataset=dataset, demo=demo,
+                                 evaluate=evaluate, train_app=train_app, kernels=kernels, Droid=Droid,
+                                 preset=preset, render_sequence=render_sequence)
+    files = file_paths(torch, np, files_port, args.seed, smi)
+    files["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 11 wall: {files['wall_s']:.1f} s")
+
     def share(row):
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         return row
@@ -2156,7 +2448,7 @@ def main(argv=None) -> int:
             build_s=build_s, sass=sass, cases=cases, split_cases=split_cases, segment_cases=seg_cases,
             small_replay=small,
             main_path=main_res, terminate_path=term_res, synthetic_protocol=proto, host_engine=host,
-            training=train, distributed=dist_res, kernels=kernel_rows,
+            training=train, distributed=dist_res, files=files, kernels=kernel_rows,
         ), indent=1))
 
     failed = [f"{f}: no tensor-core instructions" for f, k in tile_mma.items() if k == 0]
@@ -2223,6 +2515,8 @@ def main(argv=None) -> int:
         ("repeat", dt["repeat"]["ok"]), ("vs single-device", dt["vs_single_device"]["ok"])) if not ok]
     if not dd["ok"]:
         failed.append("phase 10b data-parallel step")
+    failed += [f"phase 11 {part}" for part in ("decoders", "demo", "evaluate", "train")
+               if part in files and not files[part]["ok"]]
     if failed:
         print("chip_smoke: FAILED: " + "; ".join(failed), file=sys.stderr)
         return 1
@@ -2277,6 +2571,16 @@ def main(argv=None) -> int:
         f"vs single-device with E in f32 poses {pin['pose_diff']:.3e}, disps {pin['disp_diff']:.3e} "
         f"(bound {pin['tol']:.0e}); small replay (f32) vs single-device {dt['small_replay']['vs_single_device']['cuda']}; "
         f"data-parallel step bitwise = plain; gradient all-reduce {ar['mb']:.2f} MB in {ar['ms']:.4f} ms")
+    tr = files["train"]
+    log(f"file paths (phase 11, {files['wall_s']:.1f} s, {smi}): images decode with "
+        f"{files['decoders']['decoder'] or 'nothing'}"
+        + (f"; demo {files['demo']['fps']:.2f} frames/s, terminate {files['demo']['terminate_s']:.3f} s, "
+           f"{files['demo']['keyframes']} keyframes, vs in memory max diff {files['demo']['vs_in_memory']['max_diff']:.1e}; "
+           f"evaluate tartanair ATE {files['evaluate']['ate_rmse']:.4f} scale {files['evaluate']['scale']:.4f}, "
+           f"vs in memory max diff {files['evaluate']['vs_in_memory']['max_diff']:.1e}"
+           if "demo" in files else "; 11b-c not run (no PNG decoder)")
+        + f"; TartanAir training {tr['clips']} clips, step walls "
+        f"{', '.join(f'{x:.2f}' for x in tr['step_walls_s'])} s, peak {tr['peak_allocated_gb']:.2f} GB")
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

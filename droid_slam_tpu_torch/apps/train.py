@@ -1,7 +1,10 @@
 """Training entry point of the port.
 
 The port's counterpart of the JAX package's ``apps/train.py`` (reference
-train.py) on procedurally rendered clips: per batch the ground-truth poses
+train.py), on TartanAir (``--datapath``: :class:`..data.dataset.TartanAir`,
+clips sampled along each scene's covisibility graph with a mean flow
+between ``--fmin`` and ``--fmax``, augmented and cropped to ``--crop``) or
+on procedurally rendered clips (``--synthetic``): per batch the ground-truth poses
 are inverted to world→camera and the estimate starts at [P0, P1, P1, ...]
 (train.py:86-88,95-101), half the batches draw a randomised covisibility
 graph padded to a fixed length (train.py:91-99), and random restarts run
@@ -9,21 +12,22 @@ further passes from the last estimate whose gradients add up before one
 optimizer step (train.py:102-118).
 
 Usage:
-  python -m droid_slam_tpu_torch.apps.train --synthetic [--name droid]
+  python -m droid_slam_tpu_torch.apps.train --datapath <TartanAir root> [--name droid]
+      [--fmin 8.0] [--fmax 96.0] [--cache_dir DIR]
       [--batch 4] [--steps 250000] [--crop 384 512] [--ckpt weights.msgpack]
       [--resume checkpoints/droid_state_001000.pt] [--device cpu]
       [--num_processes N --process_id K --coordinator HOST:PORT]
+  python -m droid_slam_tpu_torch.apps.train --synthetic [--pool 256] ...
 
 It runs on CUDA unless ``--device`` names another device. With
 ``--num_processes`` N > 1, N processes (one per ``--process_id``) train
 data-parallel over a ``torch.distributed`` group that meets at
 ``tcp://HOST:PORT``: NCCL on CUDA (process k on ``cuda:{k % cards}``),
-gloo on the CPU. Each process renders its own clips (seeded with its id)
-for its batch / N rows; the graph and restart draws use the shared
-``--seed``, so every process runs the same passes; rank 0's randomised
-graph is broadcast; one gradient all-reduce precedes each optimizer step;
-rank 0 logs and writes the checkpoints. TartanAir (``--datapath``) needs
-the file readers of ROADMAP.md's queue 1 item 2 and exits with an error.
+gloo on the CPU. Each process samples its own clips (the dataset seeded
+with its id) for its batch / N rows; the graph and restart draws use the
+shared ``--seed``, so every process runs the same passes; rank 0's
+randomised graph is broadcast; one gradient all-reduce precedes each
+optimizer step; rank 0 logs and writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import datetime
+import os
 import time
 from typing import Callable, ContextManager, Dict, List, Optional
 
@@ -74,7 +79,14 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr_final", type=float, default=5e-6, help="cosine schedule floor")
     ap.add_argument("--state_every", type=int, default=0,
                     help="save the full train state every N steps (0 = off)")
-    ap.add_argument("--datapath", default=None, help="TartanAir root (not ported yet)")
+    ap.add_argument("--datapath", default=None,
+                    help="TartanAir root (<root>/<env>/<env>/<Easy|Hard>/<P###>/{image_left,depth_left,"
+                    "pose_left.txt})")
+    ap.add_argument("--fmin", type=float, default=8.0, help="TartanAir: least mean flow between clip frames")
+    ap.add_argument("--fmax", type=float, default=96.0, help="TartanAir: largest mean flow between clip frames")
+    ap.add_argument("--cache_dir", default=None,
+                    help="TartanAir: where the covisibility graphs are cached (default: data/cache/ of the "
+                    "package)")
     ap.add_argument("--synthetic", action="store_true",
                     help="train on procedurally rendered scenes (data/synthetic.py)")
     ap.add_argument("--varied_frac", type=float, default=0.7,
@@ -262,6 +274,28 @@ def _train(args: argparse.Namespace, db, device, log=print,
     return history
 
 
+def dataset(args: argparse.Namespace):
+    """The clips of ``args``: TartanAir under ``--datapath`` or rendered
+    scenes. Each process samples its own: the dataset is seeded with its
+    id."""
+    if args.datapath:
+        from ..data.dataset import dataset_factory
+
+        db = dataset_factory(["tartan"], datapath=args.datapath, n_frames=args.n_frames, fmin=args.fmin,
+                             fmax=args.fmax, crop_size=tuple(args.crop), seed=args.process_id,
+                             cache_dir=args.cache_dir)
+        if args.process_id == 0:
+            print(f"dataset: {len(db)} clips")
+        return db
+    from ..data.synthetic import SyntheticDataset
+
+    db = SyntheticDataset(n_frames=args.n_frames, image_size=tuple(args.crop), seed=args.process_id,
+                          pool=args.pool, varied_frac=args.varied_frac)
+    if args.process_id == 0:
+        print("dataset: procedural synthetic scenes")
+    return db
+
+
 def init_group(args: argparse.Namespace, device: torch.device):
     """The default process group of ``--num_processes`` processes at
     ``tcp://--coordinator``: NCCL for a CUDA device, gloo for the CPU, with a
@@ -286,11 +320,11 @@ def main(argv: Optional[List[str]] = None) -> List[Dict]:
             ap.error(f"--process_id {args.process_id} out of range for {args.num_processes} processes")
     if args.batch % args.num_processes:
         ap.error(f"--batch {args.batch} does not divide over {args.num_processes} processes")
-    if args.datapath or not args.synthetic:
-        ap.error("TartanAir (--datapath) needs the port's file readers, not ported yet "
-                 "(ROADMAP.md, queue 1, item 2); the port trains with --synthetic")
+    if bool(args.datapath) == bool(args.synthetic):
+        ap.error("name one dataset: --datapath <TartanAir root> or --synthetic")
+    if args.datapath and not os.path.isdir(args.datapath):
+        ap.error(f"--datapath {args.datapath} is not a directory")
 
-    from ..data.synthetic import SyntheticDataset
     from ..runtime.droid import resolve_device
 
     device = resolve_device(args.device)
@@ -302,11 +336,7 @@ def main(argv: Optional[List[str]] = None) -> List[Dict]:
             torch.cuda.set_device(device)
         group = init_group(args, device)
     try:
-        # each process renders its own clips: the dataset is seeded with its id
-        db = SyntheticDataset(n_frames=args.n_frames, image_size=tuple(args.crop), seed=args.process_id,
-                              pool=args.pool, varied_frac=args.varied_frac)
-        if args.process_id == 0:
-            print("dataset: procedural synthetic scenes")
+        db = dataset(args)
         return train(args, db, device, group=group)
     finally:
         if group is not None:

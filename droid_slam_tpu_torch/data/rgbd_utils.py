@@ -1,15 +1,19 @@
-"""Covisibility distance matrices between the frames of a clip (PyTorch on
-the host).
+"""RGB-D dataset utilities: the TUM-format readers and the covisibility
+distance matrices between the frames of a clip (numpy and PyTorch on the
+host).
 
-Counterpart of ``compute_distance_matrix_flow`` and
-``compute_distance_matrix_flow2`` of the JAX package's
-``data/rgbd_utils.py`` (reference data_readers/rgbd_utils.py:101-190): the
-mean induced-flow magnitude between every ordered pair of frames, in chunks
-of pairs. The TUM file readers of that module belong to the file protocols
-(ROADMAP.md, queue 1).
+Counterpart of the JAX package's ``data/rgbd_utils.py`` (reference
+data_readers/rgbd_utils.py): ``parse_list``, ``associate_frames`` (each
+image stamp matched to its nearest depth and pose stamps), ``loadtum``
+and ``pose_matrix_to_quaternion`` read TUM-format sequences;
+``compute_distance_matrix_flow`` and ``compute_distance_matrix_flow2``
+give the mean induced-flow magnitude between every ordered pair of
+frames, in chunks of pairs (rgbd_utils.py:101-190).
 """
 
 from __future__ import annotations
+
+import os.path as osp
 
 import numpy as np
 import torch
@@ -18,6 +22,71 @@ from ..ops import lie
 from ..ops import projective as pops
 
 Tensor = torch.Tensor
+
+
+def parse_list(filepath: str, skiprows: int = 0) -> np.ndarray:
+    """The whitespace-separated columns of a TUM list file, as strings."""
+    return np.loadtxt(filepath, delimiter=" ", dtype=np.str_, skiprows=skiprows)
+
+
+def _nearest(ts: np.ndarray, table: np.ndarray) -> np.ndarray:
+    """Index into ``table`` of the nearest stamp for every entry of ``ts``
+    (one [len(ts), len(table)] broadcast)."""
+    return np.argmin(np.abs(ts[:, None] - table[None, :]), axis=1)
+
+
+def associate_frames(tstamp_image, tstamp_depth, tstamp_pose=None, max_dt: float = 1.0):
+    """Match every image stamp to its nearest depth (and pose) stamp and keep
+    the frames whose matches all lie within ``max_dt`` seconds (reference
+    rgbd_utils.py:16-33). Returns a list of (i, j[, k]) row indices into
+    (image, depth[, pose])."""
+    t = np.asarray(tstamp_image, np.float64)
+    td = np.asarray(tstamp_depth, np.float64)
+    j = _nearest(t, td)
+    ok = np.abs(td[j] - t) < max_dt
+    cols = [np.arange(len(t)), j]
+    if tstamp_pose is not None:
+        tp = np.asarray(tstamp_pose, np.float64)
+        k = _nearest(t, tp)
+        ok &= np.abs(tp[k] - t) < max_dt
+        cols.append(k)
+    return [tuple(int(c[i]) for c in cols) for i in np.flatnonzero(ok)]
+
+
+def loadtum(datapath: str, frame_rate: int = -1):
+    """Read a TUM-RGBD-format sequence (reference rgbd_utils.py:36-91):
+    rgb.txt, depth.txt and groundtruth.txt (or pose.txt), associated by
+    stamp, every fifth frame kept. Returns (image paths, depth paths, poses
+    [t, q_xyzw], intrinsics, stamps), all None without a pose file."""
+    pose_file = next((p for p in ("groundtruth.txt", "pose.txt") if osp.isfile(osp.join(datapath, p))), None)
+    if pose_file is None:
+        return None, None, None, None, None
+
+    image_data = parse_list(osp.join(datapath, "rgb.txt"))
+    depth_data = parse_list(osp.join(datapath, "depth.txt"))
+    pose_data = parse_list(osp.join(datapath, pose_file), skiprows=1)
+
+    pairs = associate_frames(image_data[:, 0].astype(np.float64), depth_data[:, 0].astype(np.float64),
+                             pose_data[:, 0].astype(np.float64))
+    i, j, k = np.asarray(pairs[::5], np.int64).reshape(-1, 3).T
+
+    calib_path = osp.join(datapath, "calibration.txt")
+    intrinsic = np.loadtxt(calib_path, delimiter=" ").astype(np.float64) if osp.isfile(calib_path) else None
+
+    images = [osp.join(datapath, p) for p in image_data[i, 1]]
+    depths = [osp.join(datapath, p) for p in depth_data[j, 1]]
+    poses = list(pose_data[k, 1:].astype(np.float64))
+    tstamps = list(image_data[i, 0].astype(np.float64))
+    intrinsics = [] if intrinsic is None else [intrinsic] * len(images)
+    return images, depths, poses, intrinsics, tstamps
+
+
+def pose_matrix_to_quaternion(pose: np.ndarray) -> np.ndarray:
+    """A 4×4 (or 3×4) pose matrix → [t, q_xyzw]."""
+    from scipy.spatial.transform import Rotation
+
+    q = Rotation.from_matrix(pose[:3, :3]).as_quat()
+    return np.concatenate([pose[:3, 3], q], axis=0)
 
 
 def _flow_chunk(poses_w2c: Tensor, disps: Tensor, intrinsics: Tensor, ii: Tensor, jj: Tensor) -> Tensor:

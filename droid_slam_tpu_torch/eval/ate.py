@@ -5,8 +5,9 @@ The port's own copy of the JAX package's ``eval/ate.py`` scorer, which
 stands in for the ``evo`` tool of the reference's evaluation scripts: APE
 on translation after SE(3) or Sim(3) Umeyama alignment, with optional scale
 correction (monocular protocols align and scale; RGB-D and stereo are
-metric and align without scale). The file loaders of the dataset protocols
-wait for the port's dataset streams (ROADMAP.md, queue 1).
+metric and align without scale), and the ground-truth readers of the four
+file protocols: TUM text, TartanAir's ``pose_left.txt`` and EuRoC's
+``data.csv``.
 """
 
 from __future__ import annotations
@@ -33,6 +34,35 @@ class Trajectory:
             np.asarray(poses_c2w[:, :3], np.float64),
             np.asarray(poses_c2w[:, 3:7], np.float64),
         )
+
+    @staticmethod
+    def load_tum(path: str) -> "Trajectory":
+        """A TUM trajectory file: t, xyz, q_xyzw per line, ``#`` comments."""
+        data = np.loadtxt(path, comments="#", dtype=np.float64)
+        return Trajectory(data[:, 0], data[:, 1:4], data[:, 4:8])
+
+    @staticmethod
+    def load_tartanair(path: str) -> "Trajectory":
+        """TartanAir's ``pose_left.txt``: 7 columns (NED xyz, quaternion),
+        no stamps. The columns are permuted NED → camera axes and each row
+        is stamped with its index (reference validate_tartanair.py:93-94)."""
+        raw = np.loadtxt(path, delimiter=" ", dtype=np.float64)[:, [1, 2, 0, 4, 5, 3, 6]]
+        return Trajectory(np.arange(len(raw), dtype=np.float64), raw[:, :3], raw[:, 3:])
+
+    @staticmethod
+    def load_euroc_csv(path: str) -> "Trajectory":
+        """A EuRoC sequence's ``mav0/state_groundtruth_estimate0/data.csv``
+        (timestamp in ns, p_xyz, q_wxyz, ...): stamps in seconds,
+        quaternions reordered to xyzw."""
+        data = np.loadtxt(path, comments="#", delimiter=",", dtype=np.float64)
+        return Trajectory(data[:, 0] / 1e9, data[:, 1:4], data[:, [5, 6, 7, 4]])
+
+    @staticmethod
+    def load(path: str) -> "Trajectory":
+        """EuRoC's ``.csv`` by its extension, else TUM text."""
+        if path.endswith(".csv"):
+            return Trajectory.load_euroc_csv(path)
+        return Trajectory.load_tum(path)
 
     def save_tum(self, path: str):
         data = np.concatenate([self.tstamps[:, None], self.positions, self.quats], axis=1)

@@ -1,4 +1,8 @@
-"""Wall-clock stage timers (the JAX package's ``utils/profiling.py::StageTimers``):
+"""Device traces and wall-clock stage timers (the JAX package's
+``utils/profiling.py``):
+
+    with device_trace("/tmp/trace"):          # torch.profiler, a Chrome trace
+        droid.track(...)
 
     timers = StageTimers()
     with timers.time("step", sync=True):      # fenced by torch.cuda.synchronize
@@ -9,6 +13,7 @@
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Iterator
@@ -19,6 +24,26 @@ import torch
 def _synchronize() -> None:
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str) -> Iterator[None]:
+    """Trace the body with ``torch.profiler`` (host and, where CUDA is
+    available, device activity) and write a Chrome trace,
+    ``logdir/trace.json`` (open it in Perfetto or chrome://tracing). The
+    device is synchronised on entry and on exit, so the trace holds the
+    body's device work and nothing queued before it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    _synchronize()
+    with profile(activities=activities) as prof:
+        yield
+        _synchronize()
+    os.makedirs(logdir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
 class StageTimers:

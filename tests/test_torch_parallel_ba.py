@@ -21,15 +21,18 @@ backend with a process group, against the JAX package's
   backend's within the same bound; and it must agree with the port's
   single-device backend within 1e-4.
 
-Ranks are child processes (``sys.executable -c``) that meet at a free port
-on 127.0.0.1, with a 120 s group timeout, waited on for at most 300 s and
-killed in a ``finally``.
+Ranks are child processes (``sys.executable -c``) that meet at a
+``TCPStore`` the test process holds on 127.0.0.1 (bound to a port the
+kernel picks, and held until every child has exited, so no other process
+can take the port in between), with a 120 s group timeout, waited on for
+at most 300 s and killed in a ``finally``; a failing child's exit code and
+the end of its stderr go into the assertion message.
 """
 
+import datetime
 import functools
 import json
 import os
-import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -39,6 +42,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from jax.sharding import Mesh
 
 from droid_slam_tpu.models.droid_net import init_params as jinit_params
@@ -72,10 +76,11 @@ import torch
 import torch.distributed as dist
 
 torch.set_num_threads(2)
-rank, world, port, job_path = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+rank, world, port, job_path = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
 job = json.loads(open(job_path).read())
-dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
-                        timeout=datetime.timedelta(seconds=120))
+timeout = datetime.timedelta(seconds=120)
+store = dist.TCPStore("127.0.0.1", port, is_master=False, timeout=timeout)
+dist.init_process_group("gloo", store=store, world_size=world, rank=rank, timeout=timeout)
 group = dist.group.WORLD
 out = {}
 if job["kind"] == "solve":
@@ -117,10 +122,18 @@ dist.destroy_process_group()
 """
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _store():
+    """The rendezvous of the ranks: a TCPStore that this process serves on a
+    port the kernel picks, for as long as the caller holds it."""
+    return dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False,
+                         timeout=datetime.timedelta(seconds=120))
+
+
+def _check_children(procs, results):
+    """Every child exited 0; else each child's exit code and stderr tail."""
+    failed = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
+    assert not failed, "\n".join(f"rank {r}: exit {p.returncode}\n{out[-2000:]}{err[-4000:]}"
+                                  for r, (p, (out, err)) in enumerate(zip(procs, results)))
 
 
 def _run_ranks(world: int, job: dict, tmp: Path):
@@ -129,8 +142,8 @@ def _run_ranks(world: int, job: dict, tmp: Path):
     job_path = tmp / "job.json"
     job_path.write_text(json.dumps(job))
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
-    port = str(_free_port())
-    procs = [subprocess.Popen([sys.executable, "-c", CHILD, str(r), str(world), port, str(job_path)],
+    store = _store()
+    procs = [subprocess.Popen([sys.executable, "-c", CHILD, str(r), str(world), str(store.port), str(job_path)],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=REPO)
              for r in range(world)]
     try:
@@ -139,8 +152,8 @@ def _run_ranks(world: int, job: dict, tmp: Path):
         for p in procs:
             if p.poll() is None:
                 p.kill()
-    for p, (out, err) in zip(procs, results):
-        assert p.returncode == 0, out + err
+    del store
+    _check_children(procs, results)
     return [dict(np.load(job["out"].format(rank=r))) for r in range(world)]
 
 

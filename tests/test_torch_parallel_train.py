@@ -18,14 +18,17 @@ a factor. The loss must agree within 1e-4 and the parameters within 5e-4
 JAX step's global-batch metric (relative above 1), and the two ranks'
 gradients and parameters bit for bit.
 
-Ranks are child processes (``sys.executable -c``) that meet at a free port
-on 127.0.0.1, with a 120 s group timeout, waited on for at most 300 s and
-killed in a ``finally``.
+Ranks are child processes (``sys.executable -c``) that meet at a
+``TCPStore`` the test process holds on 127.0.0.1 (bound to a port the
+kernel picks, and held until both children have exited, so no other
+process can take the port in between), with a 120 s group timeout, waited
+on for at most 300 s and killed in a ``finally``; a failing child's exit
+code and the end of its stderr go into the assertion message.
 """
 
+import datetime
 import json
 import os
-import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -35,6 +38,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from droid_slam_tpu.models.droid_net import init_params as jinit_params
 from droid_slam_tpu.train.trainer import TrainConfig as JTrainConfig
@@ -56,10 +60,11 @@ import torch
 import torch.distributed as dist
 
 torch.set_num_threads(2)
-rank, world, port, job_path = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+rank, world, port, job_path = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
 job = json.loads(open(job_path).read())
-dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
-                        timeout=datetime.timedelta(seconds=120))
+timeout = datetime.timedelta(seconds=120)
+store = dist.TCPStore("127.0.0.1", port, is_master=False, timeout=timeout)
+dist.init_process_group("gloo", store=store, world_size=world, rank=rank, timeout=timeout)
 group = dist.group.WORLD
 
 from droid_slam_tpu_torch.models.droid_net import DroidNet
@@ -93,10 +98,11 @@ dist.destroy_process_group()
 """
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _store():
+    """The rendezvous of the ranks: a TCPStore that this process serves on a
+    port the kernel picks, for as long as the caller holds it."""
+    return dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False,
+                         timeout=datetime.timedelta(seconds=120))
 
 
 @pytest.fixture(scope="module")
@@ -110,8 +116,8 @@ def dp_step(tmp_path_factory):
                ii=[a for a, _ in GRAPH], jj=[b for _, b in GRAPH], out=str(tmp / "rank{rank}.npz"))
     (tmp / "job.json").write_text(json.dumps(job))
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
-    port = str(_free_port())
-    procs = [subprocess.Popen([sys.executable, "-c", CHILD, str(r), "2", port, str(tmp / "job.json")],
+    store = _store()
+    procs = [subprocess.Popen([sys.executable, "-c", CHILD, str(r), "2", str(store.port), str(tmp / "job.json")],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=REPO)
              for r in range(2)]
     try:
@@ -127,8 +133,10 @@ def dp_step(tmp_path_factory):
         for p in procs:
             if p.poll() is None:
                 p.kill()
-    for p, (out, err) in zip(procs, results):
-        assert p.returncode == 0, out + err
+    del store
+    failed = [p.returncode for p in procs if p.returncode != 0]
+    assert not failed, "\n".join(f"rank {r}: exit {p.returncode}\n{out[-2000:]}{err[-4000:]}"
+                                  for r, (p, (out, err)) in enumerate(zip(procs, results)))
     ranks = [dict(np.load(job["out"].format(rank=r))) for r in range(2)]
     init = params_from_jax(jax.tree_util.tree_map(np.asarray, params))
     return ranks, {k: float(v) for k, v in jmetrics.items()}, want_params, init, want_grads

@@ -168,10 +168,14 @@ def test_evaluate_main_synthetic_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("dataset", ["tum", "euroc", "eth3d", "tartanair"])
 def test_evaluate_file_datasets_wait_for_item_12(dataset, capsys):
+    """The file protocols are ported (ROADMAP queue 1 item 2): without
+    --datapath the app refuses for want of the sequence, no longer as not
+    ported (tests/test_torch_apps_files.py runs them on files)."""
     with pytest.raises(SystemExit) as exc:
         evaluate.main(["--dataset", dataset, "--device", "cpu"])
     assert exc.value.code == 2
-    assert "not ported yet (ROADMAP.md, queue 1)" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert f"--dataset {dataset} needs --datapath" in err and "not ported" not in err
 
 
 # tests/test_accuracy.py::SEED_GATES: (seed, compute dtype, ATE bound)
