@@ -138,11 +138,35 @@ Phases, each of which fails the run:
      --datapath at the trainer's defaults for 2 optimizer steps (TF32
      off): finite gradients, corr_level_f32 and corr_backward_f32
      launched (without a decoder the reader loads each frame's .npy twin
-     and says so).
+     and says so);
+  12. the reference-scale entry points of droid_slam_tpu_torch/tools: (a)
+     the 240-frame courtyard loop (seed 7) rendered at 384x512 and at
+     192x256 and cached in a temporary directory, both renders timed; (b)
+     tools/longloop.py's run() at 384x512 in bf16 with the shipped
+     weights: 240 finite filled poses, keyframes in LOOP_KEYFRAMES, each
+     global-BA pass's corr_slab and corr_window launches equal to 4 x
+     steps x chunks and its edges at most 16 per keyframe, corr_level
+     launched in bf16 and in f32 while tracking; the walls, the ATE and
+     scale before and after terminate, the peak of allocated memory by
+     stage and each pass's edges and chunks printed, not gated, and the
+     terminate once more under torch.profiler, device activity only
+     (device ms by kernel, busy share); (c) the quarter-loop
+     gate of tests/test_longloop.py: the first 60 frames at 192x256, f32,
+     buffer 96: keyframes, ATE and scale within its bounds; (d)
+     tools/backend_probe.py at 200 keyframes and 240x320: its edges equal
+     to the distinct pairs of the same draws counted on the host, the
+     split pair launched 4 x steps x chunks times in the timed steps, one
+     more step profiled through device_ms (device ms by kernel, the busy
+     share against an unprofiled step), the peak of allocated memory; (e)
+     tools/eval_sweep.py with the shipped weights over seed 7 in f32 and
+     seed 11 in bf16 at phase 7's sizes: each row's keyframes and ATE bit
+     for bit phase 7's row of the same seed and dtype, with every kernel
+     of the lookup launched.
 
-It prints a `kernels` JSON line (corr_level, corr_slab and corr_window in
-bf16, corr_level_f32, corr_slab_f32 and corr_backward), the card's name
-and power limit, and as its last line {"ok": true, "device": {...}}.
+Phases 7-12 print their walls, and the run its whole wall. It prints a
+`kernels` JSON line (corr_level, corr_slab and corr_window in bf16,
+corr_level_f32, corr_slab_f32 and corr_backward), the card's name and
+power limit, and as its last line {"ok": true, "device": {...}}.
 With ``--out DIR`` the details go to DIR/chip_smoke.json and the profile
 tables to DIR/*.txt.
 
@@ -1080,14 +1104,15 @@ def protocol_row(torch, np, kernels, evaluate, DroidConfig, k: int, fused: bool 
     return row, droid, fill
 
 
-def profile_terminate(torch, droid, fill, wall_s: float, out_dir, name: str):
-    """One more terminate(fill) of a phase 7 row's Droid under
+def profile_terminate(torch, terminate, wall_s: float, out_dir, name: str):
+    """One more terminate of a Droid (``terminate()``: phase 7's row's
+    terminate(fill), phase 12b's long loop's) under
     torch.profiler, recording device activity only: device ms and launches
     by kernel, summed from the profiler's raw events (an f32 terminate with
     TF32 off launches ~3e5 kernels, and building the profiler's own event
     tree for them, with host ops beside, takes over a minute), and the busy
-    share of the profiled run. cost_s is what the profile adds to phase 7:
-    the profiled terminate and the reading of its events."""
+    share of the profiled run. cost_s is what the profile adds to its
+    phase: the profiled terminate and the reading of its events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1095,7 +1120,7 @@ def profile_terminate(torch, droid, fill, wall_s: float, out_dir, name: str):
     t_start = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        droid.terminate(iter(fill))
+        terminate()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     us, calls = {}, {}
@@ -1119,7 +1144,7 @@ def profile_terminate(torch, droid, fill, wall_s: float, out_dir, name: str):
 
     return dict(
         profiled_wall_ms=wall * 1e3, device_ms=dev_ms, device_busy_share=dev_ms / (wall * 1e3),
-        row_terminate_wall_ms=wall_s * 1e3, launches=sum(calls.values()),
+        row_terminate_wall_ms=None if wall_s is None else wall_s * 1e3, launches=sum(calls.values()),
         corr_slab_ms=ms("corr_slab"), corr_window_ms=ms("corr_window"), corr_sort_ms=ms("corr_sort"),
         top_kernels_ms={k[:60]: us[k] / 1e3 for k in ranked[:12]},
         cost_s=time.perf_counter() - t_start,
@@ -1137,7 +1162,8 @@ def synthetic_protocol(torch, np, kernels, evaluate, DroidConfig, render_sequenc
     for k in range(1, len(protocol_rows()) + 1):
         row, droid, fill = protocol_row(torch, np, kernels, evaluate, DroidConfig, k)
         if k == 1:
-            row["terminate_profile"] = profile_terminate(torch, droid, fill, row["terminate_s"], out_dir,
+            row["terminate_profile"] = profile_terminate(torch, lambda: droid.terminate(iter(fill)),
+                                                         row["terminate_s"], out_dir,
                                                          "profile_row1_terminate")
             log(f"  row 1 terminate profile: {row['terminate_profile']}")
         rows.append(row)
@@ -2205,6 +2231,195 @@ def file_paths(torch, np, port, seed: int, card: str, device: str = "cuda"):
     return res
 
 
+# -----------------------------------------------------------------------------
+# phase 12: the reference-scale entry points (droid_slam_tpu_torch/tools)
+# -----------------------------------------------------------------------------
+
+# the sizes of phase 12: tools/longloop.py's protocol (seed 7, 240 frames at
+# 384x512, bf16) and the quarter-loop gate of tests/test_longloop.py:35-75
+# (the first 60 frames of the 240-frame render at 192x256, f32, buffer 96);
+# bench.py's backend probe (200 keyframes at 240x320); the sweep at phase
+# 7's sizes (MONO_FRAMES at MONO_SIZE).
+LOOP_SEED, LOOP_FRAMES, LOOP_SIZE = 7, 240, (384, 512)
+QUARTER_FRAMES, QUARTER_SIZE = 60, (192, 256)
+PROBE_T, PROBE_SIZE = 200, (240, 320)
+LOOP_KEYFRAMES = (150, 240)
+# tests/test_longloop.py's gates: keyframes, scale-corrected ATE of the
+# keyframes, fitted scale
+QUARTER_KEYFRAMES, QUARTER_ATE, QUARTER_SCALE = (10, 55), 0.45, (0.25, 12.0)
+PROBE_JAX_EDGES = 3138  # the JAX package's record of the probe's edges (BENCH_r05.json), printed beside
+# the sweep's rows: (seed, compute dtype, phase 7's row of the same seed and dtype)
+SWEEP_ROWS = ((7, "float32", 1), (11, "bfloat16", 6))
+
+
+def split_pair_ok(launches, steps_chunks) -> bool:
+    """The split pair ran 4 levels x steps x chunks times summed over the
+    (steps, chunks) passes, and at least once."""
+    want = 4 * sum(s * c for s, c in steps_chunks)
+    return want > 0 and all(launches.get(k, 0) == want for k in ("corr_slab", "corr_window"))
+
+
+def long_loop(torch, np, port, cache: Path, out_dir=None):
+    """Phase 12b: tools/longloop.py's run() at the reference scale, with the
+    launch counts reset before it and read after it; its terminate once
+    more under the profiler, device activity only (table in
+    DIR/profile_longloop_terminate.txt). Terminate's split-pair launches
+    are held to its two global-BA passes' steps and chunks (the filler
+    launches only corr_level)."""
+    torch.cuda.synchronize()
+    port.kernels.reset_launches()
+    t0 = time.perf_counter()
+    row = port.longloop.run(
+        LOOP_SEED, LOOP_FRAMES, *LOOP_SIZE, "bfloat16", cache_dir=cache,
+        profile=lambda terminate: profile_terminate(torch, terminate, None, out_dir, "profile_longloop_terminate"))
+    wall = time.perf_counter() - t0
+    launches = port.kernels.launch_counts()
+    prof = row["profile"]
+    # the busy share of the unprofiled terminate, as 12d's of its step
+    prof["device_busy_share"] = prof["device_ms"] / (row["terminate_s"] * 1e3)
+    kf = row["keyframes"]
+    passes = [dict(p, edges_ok=0 < p["edges"] <= 16 * kf) for p in row["backend_runs"]]
+    track, term = row["launches"]["track"], row["launches"]["terminate"]
+    res = dict(row=row, wall_s=wall, launches=launches, passes=passes,
+               keyframes_ok=LOOP_KEYFRAMES[0] <= kf <= LOOP_KEYFRAMES[1],
+               poses_ok=row["poses_filled"] == LOOP_FRAMES and row["poses_finite"],
+               split_pair_ok=split_pair_ok(term, [(p["steps"], p["chunks"]) for p in passes]),
+               corr_level_ok=track.get("corr_level_bf16", 0) > 0 and track.get("corr_level_f32", 0) > 0)
+    res["ok"] = bool(res["keyframes_ok"] and res["poses_ok"] and res["corr_level_ok"] and res["split_pair_ok"]
+                     and all(p["edges_ok"] for p in passes))
+    log(f"  long loop: {kf} keyframes of {row['frames']} frames (range {LOOP_KEYFRAMES}), tracking "
+        f"{row['track_s']} s ({row['track_fps']} frames/s), warm_terminate {row['warm_terminate_s']} s, terminate "
+        f"{row['terminate_s']} s; ATE {row['ate_rmse']} at scale {row['scale']} (keyframes before terminate: "
+        f"{row['ate_kf_pre_terminate']} at scale {row['scale_kf_pre_terminate']}); peak "
+        f"{row['peak_allocated_gb']} GB; wall {wall:.1f} s: {'ok' if res['ok'] else 'FAILED'}")
+    for p in passes:
+        log(f"    pass of {p['steps']} steps: {p['edges']} edges (budget {16 * kf}), {p['chunks']} chunks")
+    per_pass = " + ".join(f"{p['steps']} x {p['chunks']}" for p in passes)
+    log(f"    terminate: corr_slab {term.get('corr_slab', 0)} corr_window {term.get('corr_window', 0)} "
+        f"(4 x ({per_pass}))")
+    log(f"    launches: tracking {track}; terminate {row['launches']['terminate']}; peak by stage "
+        f"{row['peak_allocated_gb_by_stage']} GB")
+    log(f"    terminate profile (busy share of the unprofiled terminate): {prof}")
+    return res
+
+
+def quarter_loop(torch, np, port, seq):
+    """Phase 12c: tests/test_longloop.py's quarter-loop gate: the first
+    frames of the 240-frame render, f32, buffer 96, the shipped weights;
+    the keyframes' scale-corrected ATE after tracking."""
+    K = QUARTER_FRAMES
+    config = port.DroidConfig(image_size=QUARTER_SIZE, buffer=96, warmup=8, compute_dtype="float32")
+    droid = port.Droid(config, weights=str(WEIGHTS))
+    t0 = time.perf_counter()
+    for k in range(K):
+        droid.track(k, seq["images"][k], intrinsics=seq["intrinsics"][k])
+    droid.sync()
+    track_s = time.perf_counter() - t0
+    t = droid.counter
+    est = port.lie.inv(droid.poses).cpu().numpy()
+    ref = port.Trajectory.from_poses(np.arange(K, dtype=np.float64), seq["poses"][:K])
+    r = port.ate_rmse(ref, port.Trajectory.from_poses(droid.tstamps.cpu().numpy(), est), correct_scale=True,
+                      max_dt=0.25)
+    res = dict(frames=K, keyframes=t, ate=r["ate_rmse"], scale=float(r["scale"]), track_s=track_s)
+    res["ok"] = bool(QUARTER_KEYFRAMES[0] <= t <= QUARTER_KEYFRAMES[1] and r["ate_rmse"] < QUARTER_ATE
+                     and QUARTER_SCALE[0] < r["scale"] < QUARTER_SCALE[1])
+    log(f"  quarter loop: {t} keyframes of {K} frames (range {QUARTER_KEYFRAMES}), ATE {r['ate_rmse']:.4f} (bound "
+        f"{QUARTER_ATE}) at scale {r['scale']:.4f} (band {QUARTER_SCALE}), tracking {track_s:.2f} s: "
+        f"{'ok' if res['ok'] else 'FAILED'}")
+    return res
+
+
+def probe_profile(torch, step):
+    """One probe step under torch.profiler through device_ms (its retakes
+    included): device ms by kernel."""
+    by_kernel = {}
+    ms = device_ms(torch, step, reps=1, warm=0, by_kernel=by_kernel)
+    ranked = sorted(by_kernel, key=lambda k: -by_kernel[k])
+    return dict(device_ms=ms, top_kernels_ms={k[:60]: by_kernel[k] for k in ranked[:10]},
+                corr_slab_ms=sum(v for k, v in by_kernel.items() if "corr_slab" in k),
+                corr_window_ms=sum(v for k, v in by_kernel.items() if "corr_window" in k))
+
+
+def backend_probe_path(torch, np, port):
+    """Phase 12d: tools/backend_probe.py at 200 keyframes: its edge count
+    against the same draws' distinct pairs counted on the host, the split
+    pair's launches, one more step under the profiler."""
+    t_, (H, W) = PROBE_T, PROBE_SIZE
+    host_edges = port.backend_probe.unique_edges(port.backend_probe.probe_arrays(t_, t_ + 8, H // 8, W // 8))
+    torch.cuda.synchronize()
+    port.kernels.reset_launches()
+    t0 = time.perf_counter()
+    row = port.backend_probe.backend_scale_probe(t_, (H, W), profile=lambda step: probe_profile(torch, step))
+    wall = time.perf_counter() - t0
+    prof = row["profile"]
+    prof["device_busy_share"] = prof["device_ms"] / (row["backend_step_s"] * 1e3)
+    res = dict(row=row, host_edges=host_edges, wall_s=wall, launches=port.kernels.launch_counts())
+    res["ok"] = bool(row["backend_edges"] == host_edges
+                     and split_pair_ok(row["launches"], [(row["steps"], row["backend_chunks"])]))
+    log(f"  probe: {t_} keyframes, {row['backend_edges']} edges (host count {host_edges}; the JAX package's "
+        f"record {PROBE_JAX_EDGES}), {row['backend_chunks']} chunks per step, {row['backend_step_s']} s per step, "
+        f"timed steps' launches {row['launches']}, peak {row['peak_allocated_gb']} GB, wall {wall:.1f} s: "
+        f"{'ok' if res['ok'] else 'FAILED'}")
+    log(f"    profiled step: {prof['device_ms']:.1f} ms of device time, busy share "
+        f"{prof['device_busy_share']:.3f} of the unprofiled step; {prof['top_kernels_ms']}")
+    return res
+
+
+def sweep_path(torch, np, port, proto_rows):
+    """Phase 12e: tools/eval_sweep.py over the shipped weights, one row per
+    (seed, dtype) of SWEEP_ROWS, with the launch counts reset before each
+    and read after it; keyframes and ATE bit for bit phase 7's row."""
+    rows = []
+    for seed, dtype, k in SWEEP_ROWS:
+        torch.cuda.synchronize()
+        port.kernels.reset_launches()
+        row = port.eval_sweep.sweep([str(WEIGHTS)], [seed], MONO_FRAMES, tuple(MONO_SIZE), dtype)[0]
+        launches = port.kernels.launch_counts()
+        ref = next(r for r in proto_rows if r["row"] == k)
+        row.update(phase7_row=k, phase7_keyframes=ref["keyframes"], phase7_ate=ref["ate"], launches=launches,
+                   same=bool(row["kf"] == ref["keyframes"] and row["ate_rmse"] == ref["ate"]))
+        row["ok"] = bool(row["same"] and all(launches.get(n, 0) > 0 for n in ("corr_level", "corr_slab",
+                                                                             "corr_window")))
+        log(f"  sweep seed {seed} {dtype}: {row['kf']} keyframes, ATE {row['ate_rmse']!r} (phase 7 row {k}: "
+            f"{ref['keyframes']}, {ref['ate']!r}), wall {row['wall_s']} s: {'ok' if row['ok'] else 'FAILED'}")
+        rows.append(row)
+    return dict(rows=rows, ok=all(r["ok"] for r in rows))
+
+
+def reference_scale(torch, np, port, proto_rows, out_dir=None):
+    """Phase 12: the loops rendered and cached in a temporary directory
+    (12a), the long loop (12b), the quarter-loop gate (12c), the backend
+    probe (12d) and the sweep (12e). The cache is removed at the end."""
+    import os
+    import shutil
+    import tempfile
+
+    cache = Path(tempfile.mkdtemp(prefix="chip_smoke_loop_"))
+    res = {}
+    try:
+        workers = min(8, os.cpu_count() or 1)
+        renders = {}
+        for H, W in (LOOP_SIZE, QUARTER_SIZE):  # the quarter loop's sequence is the last
+            t0 = time.perf_counter()
+            quarter_seq = port.longloop.load_or_render(LOOP_SEED, LOOP_FRAMES, H, W, cache, workers)
+            renders[f"{H}x{W}"] = time.perf_counter() - t0
+        res["render_s"] = renders
+        log(f"phase 12a: the {LOOP_FRAMES}-frame loop (seed {LOOP_SEED}) rendered on {workers} threads and "
+            f"cached: " + ", ".join(f"{k} in {v:.1f} s" for k, v in renders.items()))
+        log("phase 12b: tools/longloop.py run() at the reference scale")
+        res["long_loop"] = long_loop(torch, np, port, cache, out_dir)
+        log("phase 12c: the quarter-loop gate")
+        res["quarter"] = quarter_loop(torch, np, port, quarter_seq)
+        log("phase 12d: tools/backend_probe.py")
+        res["probe"] = backend_probe_path(torch, np, port)
+        log("phase 12e: tools/eval_sweep.py against phase 7's rows")
+        res["sweep"] = sweep_path(torch, np, port, proto_rows)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    res["ok"] = all(res[k]["ok"] for k in ("long_loop", "quarter", "probe", "sweep"))
+    return res
+
+
 def main(argv=None) -> int:
     global LOG_PATH
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2215,6 +2430,7 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs one CUDA device",
               file=sys.stderr)
@@ -2235,6 +2451,8 @@ def main(argv=None) -> int:
     from droid_slam_tpu_torch.ops import projective as pops
     from droid_slam_tpu_torch.runtime import Droid, DroidConfig
     from droid_slam_tpu_torch.runtime.config import preset
+    from droid_slam_tpu_torch.eval.ate import Trajectory, ate_rmse
+    from droid_slam_tpu_torch.tools import backend_probe, eval_sweep, longloop
     from droid_slam_tpu_torch.train import checkpoints, trainer
     from droid_slam_tpu_torch.utils import visualization
 
@@ -2350,6 +2568,15 @@ def main(argv=None) -> int:
     files["wall_s"] = time.perf_counter() - t0
     log(f"  phase 11 wall: {files['wall_s']:.1f} s")
 
+    log("phase 12: the reference-scale entry points (droid_slam_tpu_torch/tools)")
+    t0 = time.perf_counter()
+    tools_port = SimpleNamespace(longloop=longloop, backend_probe=backend_probe, eval_sweep=eval_sweep,
+                                 kernels=kernels, lie=lie, Droid=Droid, DroidConfig=DroidConfig,
+                                 Trajectory=Trajectory, ate_rmse=ate_rmse)
+    scale = reference_scale(torch, np, tools_port, proto["rows"], args.out)
+    scale["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 12 wall: {scale['wall_s']:.1f} s")
+
     def share(row):
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         return row
@@ -2448,7 +2675,7 @@ def main(argv=None) -> int:
             build_s=build_s, sass=sass, cases=cases, split_cases=split_cases, segment_cases=seg_cases,
             small_replay=small,
             main_path=main_res, terminate_path=term_res, synthetic_protocol=proto, host_engine=host,
-            training=train, distributed=dist_res, files=files, kernels=kernel_rows,
+            training=train, distributed=dist_res, files=files, reference_scale=scale, kernels=kernel_rows,
         ), indent=1))
 
     failed = [f"{f}: no tensor-core instructions" for f, k in tile_mma.items() if k == 0]
@@ -2517,6 +2744,8 @@ def main(argv=None) -> int:
         failed.append("phase 10b data-parallel step")
     failed += [f"phase 11 {part}" for part in ("decoders", "demo", "evaluate", "train")
                if part in files and not files[part]["ok"]]
+    failed += [f"phase 12{tag} {part}" for tag, part in (("b", "long_loop"), ("c", "quarter"), ("d", "probe"),
+                                                         ("e", "sweep")) if not scale[part]["ok"]]
     if failed:
         print("chip_smoke: FAILED: " + "; ".join(failed), file=sys.stderr)
         return 1
@@ -2581,6 +2810,17 @@ def main(argv=None) -> int:
            if "demo" in files else "; 11b-c not run (no PNG decoder)")
         + f"; TartanAir training {tr['clips']} clips, step walls "
         f"{', '.join(f'{x:.2f}' for x in tr['step_walls_s'])} s, peak {tr['peak_allocated_gb']:.2f} GB")
+    ll, pr, qt = scale["long_loop"], scale["probe"], scale["quarter"]
+    log(f"reference scale (phase 12, {scale['wall_s']:.1f} s, {smi}): long loop {ll['row']['keyframes']} keyframes, "
+        f"{ll['row']['track_fps']} frames/s, terminate {ll['row']['terminate_s']} s (device "
+        f"{ll['row']['profile']['device_ms']:.0f} ms, busy {ll['row']['profile']['device_busy_share']:.3f} "
+        f"of the unprofiled terminate), ATE {ll['row']['ate_rmse']} "
+        f"scale {ll['row']['scale']}, peak {ll['row']['peak_allocated_gb']} GB, passes "
+        + ", ".join(f"{p['edges']} edges/{p['chunks']} chunks" for p in ll["passes"])
+        + f"; quarter loop {qt['keyframes']} keyframes, ATE {qt['ate']:.4f}; probe {pr['row']['backend_edges']} "
+        f"edges, {pr['row']['backend_step_s']} s per step, {pr['row']['backend_chunks']} chunks; sweep rows = "
+        f"phase 7's rows {[r['phase7_row'] for r in scale['sweep']['rows']]} bit for bit")
+    log(f"whole run: {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -279,6 +279,23 @@ def render_sequence(
     return out
 
 
+def _render_frames(planes, centers, Rs, d_cam):
+    """Raycast the cameras at ``centers`` [n, 3] with rotations ``Rs``
+    [n, 3, 3] (columns: camera axes) through the per-pixel rays ``d_cam``
+    [H, W, 3]: (images, depths, camera-to-world poses (t, q_xyzw))."""
+    n = len(centers)
+    H, W = d_cam.shape[:2]
+    images = np.zeros((n, H, W, 3), np.uint8)
+    depths = np.zeros((n, H, W), np.float32)
+    poses = np.zeros((n, 7), np.float32)
+    for k in range(n):
+        d_world = d_cam @ Rs[k].T
+        images[k], depths[k] = _raycast(planes, centers[k], d_world, H, W)
+        q = Rotation.from_matrix(Rs[k]).as_quat()
+        poses[k] = np.concatenate([centers[k], q]).astype(np.float32)
+    return images, depths, poses
+
+
 def render_loop_sequence(
     rng: np.random.Generator,
     n_frames: int = 240,
@@ -286,6 +303,7 @@ def render_loop_sequence(
     radius: float = 2.5,
     revisit: float = 0.12,
     focal: Optional[float] = None,
+    workers: int = 1,
 ) -> Dict[str, np.ndarray]:
     """Reference-scale evaluation sequence: a long orbit through a textured
     courtyard that RETURNS to its start (``revisit`` extra fraction of the
@@ -297,6 +315,11 @@ def render_loop_sequence(
     World: closed courtyard (floor + 4 walls + ceiling, rich textures) the
     camera orbits inside, yawing along the path tangent with small noise;
     exact GT like render_sequence. Deterministic per rng seed.
+
+    ``workers`` > 1 raycasts contiguous blocks of frames on that many
+    threads (the frames are independent once the world and the trajectory
+    are drawn, and numpy's array operations run outside the GIL); the
+    result is the same bit for bit.
     """
     H, W = image_size
     f = focal if focal is not None else 0.9 * W
@@ -352,14 +375,16 @@ def render_loop_sequence(
                        np.arange(H, dtype=np.float64))
     d_cam = np.stack([(u - cx) / f, (v - cy) / f, np.ones_like(u)], axis=-1)
 
-    images = np.zeros((n_frames, H, W, 3), np.uint8)
-    depths = np.zeros((n_frames, H, W), np.float32)
-    poses = np.zeros((n_frames, 7), np.float32)
-    for k in range(n_frames):
-        d_world = d_cam @ Rs[k].T
-        images[k], depths[k] = _raycast(planes, centers[k], d_world, H, W)
-        q = Rotation.from_matrix(Rs[k]).as_quat()
-        poses[k] = np.concatenate([centers[k], q]).astype(np.float32)
+    if workers > 1:
+        from concurrent.futures import ThreadPoolExecutor
+
+        blocks = [b for b in np.array_split(np.arange(n_frames), workers) if len(b)]
+        with ThreadPoolExecutor(len(blocks)) as pool:
+            parts = list(pool.map(_render_frames, [planes] * len(blocks), [centers[b] for b in blocks],
+                                  [Rs[b] for b in blocks], [d_cam] * len(blocks)))
+        images, depths, poses = (np.concatenate(a) for a in zip(*parts))
+    else:
+        images, depths, poses = _render_frames(planes, centers, Rs, d_cam)
 
     return {
         "images": images,

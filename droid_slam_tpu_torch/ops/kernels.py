@@ -76,6 +76,19 @@ def reset_launches() -> None:
     DTYPE_LAUNCHES.clear()
 
 
+def launch_counts() -> Dict[str, int]:
+    """A copy of the counts so far, by kernel and by kernel and feature
+    type in one dict; the difference of two copies counts what ran between
+    them without resetting anyone else's counts."""
+    return {**LAUNCHES, **DTYPE_LAUNCHES}
+
+
+def launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    """The launches made since ``before`` (a :func:`launch_counts` copy)."""
+    now = launch_counts()
+    return {k: n - before.get(k, 0) for k, n in now.items() if n - before.get(k, 0)}
+
+
 def _nvcc() -> str:
     exe = shutil.which("nvcc")
     if exe:

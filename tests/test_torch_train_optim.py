@@ -156,19 +156,27 @@ def test_train_app_two_processes(tmp_path):
     which rank 0 broadcasts, with a restart pass), log the same passes,
     valid-edge counts and reduced losses, and rank 0 alone writes the
     checkpoint, which ``load_weights`` reads. Each process runs the app's
-    ``main`` with the group's timeout cut to 120 s, so a hang fails fast."""
+    ``main`` with the group's timeout cut to 120 s, so a hang fails fast.
+
+    The rendezvous is a ``TCPStore`` that this process serves on a port the
+    kernel picks, held until both processes have exited; ``--coordinator``
+    names it, and ``TORCHELASTIC_USE_AGENT_STORE`` makes every rank join it
+    as a client (torch's ``tcp://`` handler), so no rank binds a port that
+    another process could have taken in between."""
+    import datetime
     import os
     import re
-    import socket
     import subprocess
     import sys
     from pathlib import Path
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    import torch.distributed as dist
+
+    store = dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=120))
+    port = store.port
     repo = Path(__file__).resolve().parent.parent
-    env = dict(os.environ, PYTHONPATH=str(repo), OMP_NUM_THREADS="2")
+    env = dict(os.environ, PYTHONPATH=str(repo), OMP_NUM_THREADS="2", TORCHELASTIC_USE_AGENT_STORE="True")
     argv = ["--synthetic", "--device", "cpu", "--crop", "64", "64", "--steps", "2", "--batch", "2",
             "--n_frames", "4", "--iters", "2", "--pool", "2", "--edges", "6", "--ckpt_every", "2",
             "--seed", "0", "--name", "dp", "--num_processes", "2", "--coordinator", f"127.0.0.1:{port}"]
@@ -183,6 +191,8 @@ def test_train_app_two_processes(tmp_path):
         for p in procs:
             if p.poll() is None:
                 p.kill()
+                p.wait()
+        del store
     steps = []
     for k, (p, (out, err)) in enumerate(zip(procs, results)):
         assert p.returncode == 0, out + err
