@@ -43,11 +43,32 @@ Phases, each of which fails the run:
      those thresholds);
   5. drive the tracking path, Droid.track, at the bench configuration
      (240x320, buffer 64, 48 edge slots, every frame a keyframe, bfloat16
-     compute): warmup+4 frames, then 30 timed frames; the kernel launch
-     counts of this phase show the path went through corr_level, in bf16
-     (the operator's lookups) and in f32 (the motion probe). Then 5
-     more frames under torch.profiler give device time per frame by kernel
-     and that of the segment sums;
+     compute) on the captured engine: the frames up to the init run
+     eagerly, the first frame after it captures the step into one CUDA
+     graph (its branches IF nodes, csrc/graph_cond.cu), every later frame
+     is one replay; warmup+4 frames, then 30 timed frames (host clock and
+     CUDA events); the launch counts show the path went through
+     corr_level, in bf16 (the operator's lookups) and in f32 (the motion
+     probe), and through graph_cond: a wrapper counts a captured launch
+     once, so the gate holds the wrappers' counts to the eager frames, the
+     warm-up and the capture, and the card's launches to those plus
+     replays x the launches captured outside the cull branch (every frame
+     here a keyframe, none culled); one graph launch per frame. Then 5 more
+     frames under torch.profiler give device time per frame by kernel,
+     graph and kernel launches by the host per frame and corr_level's
+     kernel records per frame;
+  5b. the captured step against capture=False: graph_cond's IF nodes
+     against eager cond on a toy state (every predicate pair, nested,
+     replayed under sync debug mode "error", timed per node); then phase
+     5's 47 frames and phase 7's rows 1 (mono f32, culls and skipped
+     frames), 7 (RGB-D) and 8 (stereo; 7 and 8 at 48 frames, so the init
+     is not their last keyframe) on the card, each through both engines:
+     the keyframe counts after every frame, the keyframes' timestamps,
+     poses and disparities and the edge sets bit for bit, the captured
+     engine's frames after its capture under sync debug mode "error" (a
+     host read raises); the bench case timed over phase 5's window (the
+     eager engine's frames/s) and held against phase 5's own Droid; and
+     whether a host frame's upload waits for the card;
   6. drive the terminate path, Droid.terminate(), on phase 5's Droid (47
      keyframes) twice, as bench.py does; the launch counts of each show it
      went through the split pair, 4 levels x 19 global-BA steps x the
@@ -163,10 +184,14 @@ Phases, each of which fails the run:
      for bit phase 7's row of the same seed and dtype, with every kernel
      of the lookup launched.
 
-Phases 7-12 print their walls, and the run its whole wall. It prints a
-`kernels` JSON line (corr_level, corr_slab and corr_window in bf16,
-corr_level_f32, corr_slab_f32 and corr_backward), the card's name and
-power limit, and as its last line {"ok": true, "device": {...}}.
+It starts with the card's PyTorch and CUDA versions, the GPU driver's
+CUDA version and whether torch.cuda.CUDAGraph has PyTorch's own IF-node
+methods. Phases 7-12 print their walls, and the run its whole wall. It
+prints a `kernels` JSON line (corr_level, corr_slab and corr_window in
+bf16, corr_level_f32, corr_slab_f32, corr_backward and graph_cond; each
+with `launches`, the wrapper's count, and `replayed_launches`, those the
+card ran again in graph replays), the card's name and power limit, and as
+its last line {"ok": true, "device": {...}}.
 With ``--out DIR`` the details go to DIR/chip_smoke.json and the profile
 tables to DIR/*.txt.
 
@@ -183,6 +208,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 
@@ -819,8 +845,9 @@ def bench_frames(torch, np, cfg, seed: int):
 
 def timed_tracking(torch, kernels, droid, frames, intr, n_warm: int, n_timed: int):
     """Track n_warm frames, then n_timed timed ones, with the launch counts
-    reset before; returns (frames tracked, warm-up s, timed s, launches by
-    kernel, launches by kernel and feature type)."""
+    reset before; returns (frames tracked, warm-up s, timed s, ms of CUDA
+    events around the timed frames, launches by kernel, launches by kernel
+    and feature type)."""
     torch.cuda.synchronize()
     kernels.reset_launches()
     t = 0
@@ -830,13 +857,16 @@ def timed_tracking(torch, kernels, droid, frames, intr, n_warm: int, n_timed: in
         t += 1
     droid.sync()
     warm_s = time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
+    start.record()
     for _ in range(n_timed):
         droid.track(t, frames[t % len(frames)], intrinsics=intr)
         t += 1
+    end.record()
     droid.sync()
     elapsed = time.perf_counter() - t0
-    return t, warm_s, elapsed, dict(kernels.LAUNCHES), dict(kernels.DTYPE_LAUNCHES)
+    return t, warm_s, elapsed, start.elapsed_time(end), dict(kernels.LAUNCHES), dict(kernels.DTYPE_LAUNCHES)
 
 
 def profile_tracking(torch, droid, frames, intr, t: int, fps: float, out_dir, name: str):
@@ -863,16 +893,245 @@ def profile_tracking(torch, droid, frames, intr, t: int, fps: float, out_dir, na
     dev_ms = sum(kernel_us.values()) / 1e3 / n_prof
     top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:8]
     seg_ms, seg_calls = range_ms(events, DeviceType, "segment_sum")
+    host_calls = {e.key: e.count for e in events if e.device_type == DeviceType.CPU}
     return dict(
         frames=n_prof,
         profiled_wall_ms_per_frame=wall * 1e3 / n_prof,
         device_ms_per_frame=dev_ms,
+        # what the host issued per frame, and the corr_level kernels the card ran
+        graph_launches_per_frame=host_calls.get("cudaGraphLaunch", 0) / n_prof,
+        kernel_launches_per_frame=host_calls.get("cudaLaunchKernel", 0) / n_prof,
+        corr_level_records_per_frame=sum(e.count for e in events if e.device_type == DeviceType.CUDA
+                                         and "corr_level" in e.key) / n_prof,
         corr_level_ms_per_frame=sum(v for k, v in kernel_us.items() if "corr_level" in k) / 1e3 / n_prof,
         segment_sum_ms_per_frame=seg_ms / n_prof,
         segment_sum_calls_per_frame=seg_calls / n_prof,
         device_busy_share=dev_ms * fps / 1e3,
         top_kernels_ms_per_frame={k[:60]: v / 1e3 / n_prof for k, v in top},
     )
+
+
+GRAPH_IF_API = ("get_currently_capturing_graph", "begin_capture_to_if_node", "end_capture_to_conditional_node")
+GRAPH_COND_NODES = 32  # IF nodes of graph_cond's timed chain
+# IF nodes of the captured step, all in the graph itself: keyframe, update
+# up to the cull test, update and cull, update and keep, the rest of update
+GRAPH_IF_NODES = 5
+
+
+def driver_cuda_version() -> str:
+    """The CUDA version of the installed driver (cuDriverGetVersion)."""
+    import ctypes
+
+    v = ctypes.c_int()
+    ctypes.CDLL("libcuda.so.1").cuDriverGetVersion(ctypes.byref(v))
+    return f"{v.value // 1000}.{v.value % 1000 // 10}"
+
+
+def graph_launches(g, wrapper, steady_frames: int):
+    """The launches of a tracking run whose frames after init replay the
+    captured step ``g``, every replay on the keyframe-and-keep path (phase
+    5's frames: every frame a keyframe, none culled). A wrapper counts a
+    launch when it queues its kernel, once per capture for a captured one;
+    the card runs it on every replay that takes its branch. So the device's
+    launches are the wrappers' counts less those of the capture, plus
+    replays x those of the capture outside the cull branch."""
+    per_replay = {k: n - g.branch_launches.get("cull", {}).get(k, 0) for k, n in g.launches.items()}
+    device = {k: wrapper.get(k, 0) - g.launches.get(k, 0) + g.replays * per_replay.get(k, 0)
+              for k in set(wrapper) | set(per_replay)}
+    return dict(launches=dict(wrapper), device_launches=device, replays=g.replays,
+                replayed_launches={k: g.replays * n for k, n in per_replay.items()},
+                captured_launches=g.launches, branch_launches=g.branch_launches,
+                graph_launches_per_frame=g.replays / steady_frames, capture_s=g.capture_s,
+                pool_bytes=g.pool_bytes)
+
+
+def check_graph_cond(torch, graph, dev):
+    """The IF node (csrc/graph_cond.cu) against its plain version, cond
+    run eagerly: a toy state x [4] and fn = cond(p, a, b) with a nested
+    cond(q, ...) in a, then x += 0.5, captured once and replayed for every
+    (p, q) under sync debug mode "error", each against the eager fn on the
+    same state. Then a chain of GRAPH_COND_NODES conds, each adding 1 to
+    one element where its predicate holds, timed per cond (CUDA events
+    over 50 replays) against the eager chain (a host read per cond)."""
+    import itertools
+
+    x = torch.zeros(4, device=dev)
+    p, q = (torch.zeros((), dtype=torch.bool, device=dev) for _ in range(2))
+
+    def inner(s):
+        s.mul_(10.0)
+
+    def a(s):
+        s.add_(1.0)
+        graph.cond(q, inner, None, s)
+
+    def b(s):
+        s.sub_(1.0)
+
+    def fn():
+        graph.cond(p, a, b, x)
+        x.add_(0.5)
+
+    with graph._warming(dev):
+        fn()
+    cap = graph.Captured(fn, dev)
+    err, got_all, want_all = 0.0, [], []
+    for pv, qv in itertools.product((True, False), repeat=2):
+        p.fill_(pv)
+        q.fill_(qv)
+        x.zero_()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            cap.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got = x.clone()
+        x.zero_()
+        fn()  # eager: reads p and q on the host
+        err = max(err, float((got - x).abs().max()))
+        got_all.append(got.tolist())
+        want_all.append(x.tolist())
+
+    y = torch.zeros(GRAPH_COND_NODES, device=dev)
+    yes = torch.ones((), dtype=torch.bool, device=dev)
+    bodies = [lambda s, i=i: s[i].add_(1.0) for i in range(GRAPH_COND_NODES)]
+
+    def chain():
+        for body in bodies:
+            graph.cond(yes, body, None, y)
+
+    with graph._warming(dev):
+        chain()
+    chained = graph.Captured(chain, dev)
+    ms = cuda_ms(torch, chained.replay, reps=50) / GRAPH_COND_NODES
+    plain_ms = cuda_ms(torch, chain, reps=10) / GRAPH_COND_NODES
+    # per cond: the predicate's byte and one f32 read and written
+    bound_ms, bound_by = bound(1 + 8, 1, "float32")
+    # every element: the warm-up, 3 + 50 replays, 3 + 10 eager chains
+    runs = 1 + (3 + 50) + (3 + 10)
+    res = dict(name="graph_cond", max_abs_err=err, replayed=got_all, eager=want_all, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, capture_s=cap.capture_s, chain_capture_s=chained.capture_s,
+               chain_ok=float(y.min()) == float(y.max()) == runs)
+    res["ok"] = bool(err == 0.0 and res["chain_ok"])
+    log(f"  graph_cond: replays vs eager cond max err {err:.1e} over (p, q) in TT, TF, FT, FF "
+        f"{got_all}; per IF node {ms:.5f} ms replayed, {plain_ms:.5f} ms eager (a host read each), bound "
+        f"{res['bound_ms']:.2e} ms; capture {cap.capture_s:.3f} s: {'ok' if res['ok'] else 'FAILED'}")
+    return res
+
+
+def compare_engines(torch, np, make, stream, timed=None, per_frame: bool = True):
+    """Track ``stream`` ((t, image, depth or None, intrinsics), all on the
+    card) with ``make(capture=False)`` and ``make(capture=True)``. The
+    captured Droid's frames after its capture run under sync debug mode
+    "error": a host read there raises. Holds the two bit for bit: the
+    keyframe count after every frame (``per_frame``; else at the end), the
+    keyframe timestamps, poses and disparities, the active and inactive
+    edges. ``timed`` = (first frame, frames): host seconds over that window
+    of each run, ended by a synchronise."""
+    runs = {}
+    for capture in (False, True):
+        droid = make(capture)
+        hist, checked, wall = [], 0, None
+        torch.cuda.synchronize()
+        for t, image, depth, intr in stream:
+            if timed is not None and t == timed[0]:
+                droid.sync()
+                t0 = time.perf_counter()
+            steady = droid.graph is not None
+            if steady:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                droid.track(t, image, depth=depth, intrinsics=intr)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            checked += steady
+            if timed is not None and t == timed[0] + timed[1] - 1:
+                droid.sync()
+                wall = time.perf_counter() - t0
+            if per_frame:
+                hist.append(droid.counter)
+        droid.sync()
+        runs[capture] = dict(droid=droid, hist=hist if per_frame else [droid.counter], checked=checked,
+                             fps=None if wall is None else timed[1] / wall)
+    eager, captured = runs[False]["droid"], runs[True]["droid"]
+    g = captured.graph
+    same = dict(
+        keyframes=runs[False]["hist"] == runs[True]["hist"],
+        tstamps=torch.equal(eager.tstamps, captured.tstamps),
+        poses=torch.equal(eager.poses, captured.poses),
+        disps=torch.equal(eager.disps, captured.disps),
+        edges=eager.edges == captured.edges,
+        inactive_edges=eager.inactive_edges == captured.inactive_edges,
+    )
+    res = dict(frames=len(stream), keyframes=captured.counter, same=same,
+               sync_checked_frames=runs[True]["checked"], eager_fps=runs[False]["fps"],
+               captured_fps=runs[True]["fps"], replays=None if g is None else g.replays,
+               capture_s=None if g is None else g.capture_s, pool_bytes=None if g is None else g.pool_bytes,
+               branch_launches=None if g is None else g.branch_launches)
+    res["ok"] = bool(all(same.values()) and g is not None and res["sync_checked_frames"] == g.replays - 1 > 0)
+    return res, captured
+
+
+def host_upload_syncs(torch, np, shape) -> bool:
+    """Whether uploading a host frame (what Droid.track does with a numpy
+    image) waits for the card: the copy under sync debug mode "warn"."""
+    import warnings
+
+    img = np.zeros(shape, np.uint8)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            torch.as_tensor(img, device="cuda")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return any("synchroniz" in str(w.message) for w in caught)
+
+
+# phase 7's rows held captured against eager: mono f32 (culls, skips), RGB-D
+# and stereo, with their frames; rows 7 and 8 take 48, not their 24: at 24
+# their 8th keyframe, and with it the init, comes last, and no frame would
+# run the captured step
+CAPTURE_ROWS = {1: None, 7: 48, 8: 48}
+
+
+def captured_vs_eager(torch, np, Droid, DroidConfig, init_params, evaluate, graph, seed: int, phase5):
+    """Phase 5b: the IF node against eager cond (check_graph_cond); then
+    phase 5's 47 frames and phase 7's rows 1, 7 and 8 (their track streams
+    uploaded to the card first) through compare_engines: the captured
+    engine bit for bit the eager one, its frames after the capture free of
+    host reads. The bench case is timed over phase 5's window and also held
+    against phase 5's own Droid; whether a host frame's upload waits for
+    the card is read too."""
+    dev = torch.device("cuda")
+    res = dict(graph_cond=check_graph_cond(torch, graph, dev))
+    cfg = DroidConfig(**BENCH_CONFIG)
+    frames, intr = bench_frames(torch, np, cfg, seed)
+    stream = [(t, frames[t % len(frames)], None, intr) for t in range(phase5["droid"].counter)]
+    bench, droid = compare_engines(torch, np, lambda capture: Droid(cfg, params=init_params(seed), device=dev,
+                                                                    capture=capture),
+                                   stream, timed=(cfg.warmup + 4, 30), per_frame=False)
+    ref = phase5["droid"]
+    bench["vs_phase5"] = bool(torch.equal(droid.poses, ref.poses) and torch.equal(droid.disps, ref.disps))
+    bench["ok"] = bench["ok"] and bench["vs_phase5"]
+    log(f"  bench (phase 5's {len(stream)} frames): {bench}")
+    res["cases"] = {"bench": bench}
+    for k, n_frames in CAPTURE_ROWS.items():
+        config, track, _, _ = protocol_inputs(evaluate, DroidConfig, k, n_frames)
+
+        def on_card(x):
+            return None if x is None else torch.as_tensor(np.asarray(x), device=dev)
+
+        stream = [(item[0], on_card(item[1]), on_card(item[2]) if len(item) == 4 else None, on_card(item[-1]))
+                  for item in track]
+        case, _ = compare_engines(torch, np, lambda capture: Droid(config, weights=str(WEIGHTS), device=dev,
+                                                                   capture=capture), stream)
+        log(f"  row {k} ({protocol_rows()[k - 1][0]}, {config.compute_dtype}, {len(stream)} frames): {case}")
+        res["cases"][f"row {k}"] = case
+    res["host_upload_syncs"] = host_upload_syncs(torch, np, (*BENCH_CONFIG["image_size"], 3))
+    log(f"  a host frame's upload waits for the card: {res['host_upload_syncs']}")
+    res["ok"] = bool(res["graph_cond"]["ok"] and all(c["ok"] for c in res["cases"].values()))
+    return res
 
 
 def main_path(torch, np, kernels, Droid, DroidConfig, init_params, seed: int, out_dir):
@@ -882,29 +1141,39 @@ def main_path(torch, np, kernels, Droid, DroidConfig, init_params, seed: int, ou
     droid = Droid(cfg, params=init_params(seed), device=torch.device("cuda"))
     frames, intr = bench_frames(torch, np, cfg, seed)
     n_timed = 30
-    t, warm_s, elapsed, launches, dtype_launches = timed_tracking(
+    t, warm_s, elapsed, event_ms, launches, dtype_launches = timed_tracking(
         torch, kernels, droid, frames, intr, cfg.warmup + 4, n_timed)
 
     poses, disps = droid.poses, droid.disps
     h, w = cfg.feat_size
     res = dict(
         frames=t, keyframes=droid.counter, fps=n_timed / elapsed, timed_s=elapsed,
-        warmup_s=warm_s, launches=launches, dtype_launches=dtype_launches, n_edges=len(droid.edges),
+        event_ms_per_frame=event_ms / n_timed, warmup_s=warm_s, n_edges=len(droid.edges),
         n_inactive=len(droid.inactive_edges),
-        # probe on frames 1..warmup-1, 16 init iterations, then per frame
-        # 1 probe + 4 + 2 iterations; 4 levels each
-        expected_corr_launches=4 * ((cfg.warmup - 1) + 16 + 7 * (t - cfg.warmup)),
-        # the probe, in f32 whatever the compute type, on every frame after the first
-        expected_f32_launches=4 * (t - 1),
         finite=bool(torch.isfinite(poses).all() and torch.isfinite(disps).all()),
         shapes_ok=tuple(poses.shape) == (droid.counter, 7) and tuple(disps.shape) == (droid.counter, h, w),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
     )
+    res.update(graph_launches(droid.graph, {**launches, **dtype_launches}, t - cfg.warmup))
+    # frames 0..warmup-1 run eagerly: the probe on frames 1..warmup-1 and the
+    # 16 init iterations; the warm-up before the capture runs each side of
+    # every branch once (1 probe + 4 + 2 iterations, the cull has no
+    # lookup), and the capture records them once more; then every replay
+    # runs 1 probe + 4 + 2 iterations. 4 levels each; the probe in f32
+    # whatever the compute type.
+    eager = (cfg.warmup - 1) + 16 + 7
+    res.update(
+        expected_launches={"corr_level": 4 * (eager + 7), "corr_level_f32": 4 * (cfg.warmup - 1 + 2),
+                           "graph_cond": GRAPH_IF_NODES},
+        expected_device_launches={"corr_level": 4 * (eager + 7 * res["replays"]), "corr_level_f32": 4 * t,
+                                  "graph_cond": GRAPH_IF_NODES * res["replays"]},
+    )
+    got = {k: res["launches"].get(k) for k in res["expected_launches"]}
+    got_device = {k: res["device_launches"].get(k) for k in res["expected_device_launches"]}
     res["ok"] = bool(res["finite"] and res["shapes_ok"] and droid.counter == t
-                     and launches["corr_level"] == res["expected_corr_launches"]
-                     and dtype_launches.get("corr_level_f32") == res["expected_f32_launches"]
-                     and dtype_launches.get("corr_level_bf16") == (res["expected_corr_launches"]
-                                                                   - res["expected_f32_launches"]))
+                     and got == res["expected_launches"] and got_device == res["expected_device_launches"]
+                     and res["launches"].get("corr_level_bf16") == got["corr_level"] - got["corr_level_f32"]
+                     and res["replays"] == t - cfg.warmup and res["graph_launches_per_frame"] == 1.0)
     log(f"  {res}")
 
     # device time by kernel over 5 more frames (after the counts were read)
@@ -1060,6 +1329,20 @@ def protocol_rows():
     return cases + [(mode, 7, "float32", gate[0]) for mode, gate in METRIC_GATES.items()]
 
 
+def protocol_inputs(evaluate, DroidConfig, k: int, frames: Optional[int] = None):
+    """Phase 7's row k (1-8): its DroidConfig and its track, fill and
+    reference streams (``frames`` of them, default the row's)."""
+    mode, seed, dtype, _ = protocol_rows()[k - 1]
+    mono = mode == "mono"
+    n, size = (MONO_FRAMES, MONO_SIZE) if mono else (METRIC_FRAMES, METRIC_SIZE)
+    frames = frames or n
+    track, fill, ref = evaluate.synthetic_streams(seed, frames, size, stereo=mode == "stereo",
+                                                  rgbd=mode == "rgbd")
+    config = DroidConfig(image_size=size, buffer=96 if mono else 64, warmup=8,
+                         stereo=mode == "stereo", compute_dtype=dtype)
+    return config, track, fill, ref
+
+
 def protocol_row(torch, np, kernels, evaluate, DroidConfig, k: int, fused: bool = True):
     """Phase 7's row k (1-8) through run_slam with the fused engine, or with
     the host-driven one (phase 8c), with the launch counts reset before it
@@ -1068,10 +1351,7 @@ def protocol_row(torch, np, kernels, evaluate, DroidConfig, k: int, fused: bool 
     mode, seed, dtype, bound = protocol_rows()[k - 1]
     mono = mode == "mono"
     frames, size = (MONO_FRAMES, MONO_SIZE) if mono else (METRIC_FRAMES, METRIC_SIZE)
-    track, fill, ref = evaluate.synthetic_streams(seed, frames, size, stereo=mode == "stereo",
-                                                  rgbd=mode == "rgbd")
-    config = DroidConfig(image_size=size, buffer=96 if mono else 64, warmup=8,
-                         stereo=mode == "stereo", compute_dtype=dtype)
+    config, track, fill, ref = protocol_inputs(evaluate, DroidConfig, k)
     torch.cuda.synchronize()
     kernels.reset_launches()
     traj, droid, walls = evaluate.run_slam(config, str(WEIGHTS), track, fill, device="cuda", fused=fused)
@@ -1212,7 +1492,7 @@ def host_engine_path(torch, np, kernels, Droid, DroidConfig, init_params, visual
     droid = Droid(cfg, params=init_params(seed), device=torch.device("cuda"), fused=False)
     frames, intr = bench_frames(torch, np, cfg, seed)
     n_timed = 30
-    t, warm_s, elapsed, launches, dtype_launches = timed_tracking(
+    t, warm_s, elapsed, _, launches, dtype_launches = timed_tracking(
         torch, kernels, droid, frames, intr, cfg.warmup + 4, n_timed)
     # the probe on every frame after the first, 16 initialisation
     # iterations, 4 + 2 per keyframe after the warmup (no cull); 4 levels each
@@ -2449,7 +2729,7 @@ def main(argv=None) -> int:
     from droid_slam_tpu_torch.models.droid_net import DroidNet, init_params
     from droid_slam_tpu_torch.ops import corr, kernels, lie, segment
     from droid_slam_tpu_torch.ops import projective as pops
-    from droid_slam_tpu_torch.runtime import Droid, DroidConfig
+    from droid_slam_tpu_torch.runtime import Droid, DroidConfig, graph
     from droid_slam_tpu_torch.runtime.config import preset
     from droid_slam_tpu_torch.eval.ate import Trajectory, ate_rmse
     from droid_slam_tpu_torch.tools import backend_probe, eval_sweep, longloop
@@ -2458,6 +2738,9 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    log(f"  the GPU driver's CUDA {driver_cuda_version()}; torch.cuda.CUDAGraph has "
+        + ", ".join(f"{m} {hasattr(torch.cuda.CUDAGraph, m)}" for m in GRAPH_IF_API)
+        + " (the port builds its IF nodes in csrc/graph_cond.cu either way)")
 
     log("phase 1: TF32 off")
     tf32_defaults = dict(matmul=torch.backends.cuda.matmul.allow_tf32, cudnn=torch.backends.cudnn.allow_tf32)
@@ -2520,6 +2803,12 @@ def main(argv=None) -> int:
 
     log("phase 5: main path, Droid.track at the bench configuration")
     main_res, droid = main_path(torch, np, kernels, Droid, DroidConfig, init_params, args.seed, args.out)
+
+    log("phase 5b: the captured step vs capture=False, bit for bit, no host read after the capture")
+    t0 = time.perf_counter()
+    capture_res = captured_vs_eager(torch, np, Droid, DroidConfig, init_params, evaluate, graph, args.seed,
+                                    dict(droid=droid))
+    capture_res["wall_s"] = time.perf_counter() - t0
 
     log("phase 6: terminate path, Droid.terminate() at the bench configuration")
     term_res, term_ref = terminate_path(torch, np, kernels, droid, args.out)
@@ -2591,6 +2880,7 @@ def main(argv=None) -> int:
         source="droid_slam_tpu_torch/csrc/corr_level.cu",
         replaces="droid_slam_tpu/ops/pallas_corr.py:80",
         launches=main_res["launches"]["corr_level"],
+        replayed_launches=main_res["replayed_launches"]["corr_level"],
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=sum(c["ms"] for c in main_cases),
         plain_ms=sum(c["plain_ms"] for c in main_cases),
@@ -2610,6 +2900,7 @@ def main(argv=None) -> int:
             source="droid_slam_tpu_torch/csrc/corr_split.cu",
             replaces=f"droid_slam_tpu/ops/pallas_corr.py:{line}",
             launches=term_res["runs"][0]["launches"][name],
+            replayed_launches=0,
             max_abs_err=max(c["max_abs_err"][name] for c in split_cases),
             ms=sum(c["ms"][name] for c in split_bf16),
             plain_ms=sum(c["plain_ms"][name] for c in split_bf16),
@@ -2620,7 +2911,9 @@ def main(argv=None) -> int:
         ))
         kernel_rows.append(row)
     # the f32 tiles: corr_level at N=48 and corr_slab at N=256, iid, 4
-    # levels, with phase 7 row 1's f32 launches (an f32 row of the protocol)
+    # levels; corr_level_f32 with phase 5's launches (the probe, replayed
+    # with the captured step), corr_slab_f32 with phase 7 row 1's (an f32
+    # row of the protocol)
     row1 = proto["rows"][0]
     f32_level = [c for c in cases if c["dtype"] == "float32" and c["kind"] == "iid"]
     f32_split = [c for c in split_cases if c["dtype"] == "float32" and c["kind"] == "iid"]
@@ -2637,12 +2930,14 @@ def main(argv=None) -> int:
     for name, source, line, sel, nbytes, ops, ms, plain, bnd, err in f32_sets:
         k_bytes = sum(nbytes(c) / MEM_BYTES_PER_S for c in sel)
         k_ops = sum(ops(c) / PEAK_OPS_PER_S["float32"] for c in sel)
+        launched = main_res["launches"] if name == "corr_level_f32" else row1["dtype_launches"]
         kernel_rows.append(share(dict(
             name=name,
             route="cuda",
             source=f"droid_slam_tpu_torch/csrc/{source}",
             replaces=f"droid_slam_tpu/ops/pallas_corr.py:{line}",
-            launches=row1["dtype_launches"].get(name, 0),
+            launches=launched.get(name, 0),
+            replayed_launches=main_res["replayed_launches"].get(name, 0) if name == "corr_level_f32" else 0,
             max_abs_err=err,
             ms=sum(ms(c) for c in sel),
             plain_ms=sum(plain(c) for c in sel),
@@ -2661,6 +2956,7 @@ def main(argv=None) -> int:
         source="droid_slam_tpu_torch/csrc/corr_backward.cu",
         replaces="droid_slam_tpu/ops/corr.py:135 (no Pallas counterpart: XLA autodiff of corr_index)",
         launches=train["defaults"]["launches"].get("corr_backward_f32", 0),
+        replayed_launches=0,
         max_abs_err=max(max(c["max_abs_err"].values()) for c in train["backward_cases"]),
         ms=sum(c["ms"] for c in bwd_iid),
         plain_ms=sum(c["plain_ms"] for c in bwd_iid),
@@ -2668,13 +2964,31 @@ def main(argv=None) -> int:
         bound_by="bytes" if b_bytes >= b_ops else "operations",
         library_ms=sum(c["library_ms"] for c in bwd_iid),
     )))
+    # the IF node's set kernel: no TPU kernel; JAX's lax.cond inside the
+    # jitted step, with phase 5's launches (GRAPH_IF_NODES captured, as many
+    # per replay)
+    gc = capture_res["graph_cond"]
+    kernel_rows.append(share(dict(
+        name="graph_cond",
+        route="cuda",
+        source="droid_slam_tpu_torch/csrc/graph_cond.cu",
+        replaces="droid_slam_tpu/runtime/fused.py:597 (lax.cond in the jitted step; not a Pallas kernel)",
+        launches=main_res["launches"].get("graph_cond", 0),
+        replayed_launches=main_res["replayed_launches"].get("graph_cond", 0),
+        max_abs_err=gc["max_abs_err"],
+        ms=gc["ms"],
+        plain_ms=gc["plain_ms"],
+        bound_ms=gc["bound_ms"],
+        bound_by=gc["bound_by"],
+        library_ms=None,
+    )))
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(dict(
             device=torch.cuda.get_device_name(0), nvidia_smi=smi, torch=torch.__version__,
             tf32_defaults=tf32_defaults,
             build_s=build_s, sass=sass, cases=cases, split_cases=split_cases, segment_cases=seg_cases,
             small_replay=small,
-            main_path=main_res, terminate_path=term_res, synthetic_protocol=proto, host_engine=host,
+            main_path=main_res, captured_vs_eager=capture_res, terminate_path=term_res, synthetic_protocol=proto, host_engine=host,
             training=train, distributed=dist_res, files=files, reference_scale=scale, kernels=kernel_rows,
         ), indent=1))
 
@@ -2699,9 +3013,10 @@ def main(argv=None) -> int:
         failed.append(f"corr_window {window['ms']:.4f} ms is slower than grid_sample "
                       f"{window['library_ms']:.4f} ms (iid, bf16, N=256, 4 levels)")
     for name in ("corr_level_f32", "corr_slab_f32"):
-        row = next(r for r in kernel_rows if r["name"] == name)
-        if row["launches"] == 0:
+        if not row1["dtype_launches"].get(name):
             failed.append(f"{name}: no launch in phase 7 row 1")
+    failed += [f"{row['name']}: no launch in phase 5" for row in kernel_rows
+               if row["name"] in ("corr_level", "corr_level_f32", "graph_cond") and not row["launches"]]
     slab32 = next(r for r in kernel_rows if r["name"] == "corr_slab_f32")
     if slab32["ms"] > slab32["plain_ms"]:
         failed.append(f"corr_slab_f32 {slab32['ms']:.4f} ms is slower than its plain version "
@@ -2709,6 +3024,9 @@ def main(argv=None) -> int:
     failed += [f"segment_sum {c['name']}" for c in seg_cases if not c["ok"]]
     if not main_res["ok"]:
         failed.append("main path")
+    if not capture_res["graph_cond"]["ok"]:
+        failed.append("phase 5b graph_cond vs eager cond")
+    failed += [f"phase 5b {name}: {case['same']}" for name, case in capture_res["cases"].items() if not case["ok"]]
     if not term_res["ok"]:
         failed.append("terminate path")
     failed += [f"synthetic row {r['row']} {r['mode']} seed {r['seed']} {r['dtype']}"
@@ -2750,8 +3068,21 @@ def main(argv=None) -> int:
         print("chip_smoke: FAILED: " + "; ".join(failed), file=sys.stderr)
         return 1
 
-    log(f"main path: {main_res['fps']:.2f} frames/s, {main_res['keyframes']} keyframes, "
-        f"corr_level launches {main_res['launches']['corr_level']}")
+    prof, bench = main_res["profile"], capture_res["cases"]["bench"]
+    log(f"main path (captured step): {main_res['fps']:.2f} frames/s (capture=False: {bench['eager_fps']:.2f}), "
+        f"{main_res['keyframes']} keyframes, {main_res['event_ms_per_frame']:.2f} ms per frame of CUDA events, "
+        f"device {prof['device_ms_per_frame']:.2f} ms per frame, busy {prof['device_busy_share']:.3f}, "
+        f"graph launches per frame {main_res['graph_launches_per_frame']:.2f} (profiled: "
+        f"{prof['graph_launches_per_frame']:.2f}; kernel launches by the host {prof['kernel_launches_per_frame']:.1f}), "
+        f"capture {main_res['capture_s']:.3f} s, pool {main_res['pool_bytes'] / 1e6:.1f} MB; corr_level launches "
+        f"{main_res['launches']['corr_level']} queued, {main_res['device_launches']['corr_level']} on the card "
+        f"({prof['corr_level_records_per_frame']:.1f} records per profiled frame)")
+    log(f"captured vs eager (phase 5b, {capture_res['wall_s']:.1f} s): "
+        + ", ".join(f"{name} {'bitwise' if case['ok'] else 'DIFFERS'} ({case['keyframes']} keyframes, "
+                    f"{case['sync_checked_frames']} frames under sync debug 'error')"
+                    for name, case in capture_res["cases"].items())
+        + f"; graph_cond {capture_res['graph_cond']['ms']:.5f} ms per IF node; a host frame's upload waits for "
+        f"the card: {capture_res['host_upload_syncs']}")
     walls = ", ".join(f"{r['wall_s']:.3f}" for r in term_res["runs"])
     first = term_res["runs"][0]["launches"]
     log(f"terminate path: {term_res['keyframes']} keyframes, wall {walls} s, "
@@ -2765,7 +3096,9 @@ def main(argv=None) -> int:
             log(f"{row['name']}: {row['ms']:.4f} ms in this run (profiler); first design "
                 f"{FIRST_DESIGN_MS[row['name']]} ms (a constant from earlier runs)")
     log(f"f32 launches of phase 7 row 1 (mono seed 7, f32): {row1['dtype_launches']}; "
-        f"phase 5 (bf16 tracking, f32 probe): {main_res['dtype_launches']}")
+        f"phase 5 (bf16 tracking, f32 probe): queued "
+        f"{ {k: n for k, n in main_res['launches'].items() if k.startswith('corr_level_')} }, on the card "
+        f"{ {k: n for k, n in main_res['device_launches'].items() if k.startswith('corr_level_')} }")
     hb, hterm, hrow = host["bench"], host["bench"]["terminate"], host["row1"]
     log(f"host engine (phase 8, {host['wall_s']:.1f} s): {hb['fps']:.2f} frames/s (fused {main_res['fps']:.2f}), "
         f"device busy {hb['profile']['device_busy_share']:.3f} (fused "
@@ -2776,9 +3109,9 @@ def main(argv=None) -> int:
         f"on all three runs; row 1 ATE {hrow['ate']:.4f}, keyframes {hrow['keyframes']} "
         f"(fused {row1['keyframes']})")
     td, tl = train["defaults"], train["learns"]
-    log(f"training (phase 9, {train['wall_s']:.1f} s): corr_backward {kernel_rows[-1]['ms']:.4f} ms per "
-        f"4-level backward at 208 edges (plain {kernel_rows[-1]['plain_ms']:.4f}, bound "
-        f"{kernel_rows[-1]['bound_ms']:.4f}, grid_sample backward {kernel_rows[-1]['library_ms']:.4f}); "
+    log(f"training (phase 9, {train['wall_s']:.1f} s): corr_backward {bwd_row['ms']:.4f} ms per "
+        f"4-level backward at 208 edges (plain {bwd_row['plain_ms']:.4f}, bound "
+        f"{bwd_row['bound_ms']:.4f}, grid_sample backward {bwd_row['library_ms']:.4f}); "
         f"card vs CPU loss rel err {train['card_vs_cpu']['loss_rel_err']:.2e}, worst gradient "
         f"{train['card_vs_cpu']['worst_grad']:.2e}; defaults: {td['passes']} passes in {td['steps']} steps, "
         f"step walls {', '.join(f'{x:.2f}' for x in td['step_walls_s'])} s, profiled step "

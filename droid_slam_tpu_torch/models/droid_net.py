@@ -19,6 +19,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import ba as ba_ops
+from ..ops import lie
 from ..ops import projective as pops
 from ..ops.corr import CorrPyramid
 from .extractor import BasicEncoder
@@ -34,8 +35,8 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 def normalize_images(images: Tensor) -> Tensor:
     """RGB [..., H, W, 3] in [0, 255] → ImageNet-normalised float32."""
     x = images.float() / 255.0
-    mean = x.new_tensor(IMAGENET_MEAN)
-    std = x.new_tensor(IMAGENET_STD)
+    mean = lie.constant(IMAGENET_MEAN, x)
+    std = lie.constant(IMAGENET_STD, x)
     return (x - mean) / std
 
 

@@ -45,7 +45,14 @@ class _CholeskySolve(torch.autograd.Function):
     def forward(ctx, H: Tensor, b: Tensor) -> Tensor:
         H = 0.5 * (H + H.transpose(-1, -2))
         L, info = torch.linalg.cholesky_ex(H)
-        x = torch.cholesky_solve(b, L)
+        if H.is_cuda and H.dim() == 2:
+            # one system on the card (the tracking step's window): two
+            # triangular solves, bit for bit cholesky_solve's, without the
+            # scratch its cuSOLVER call allocates stream-ordered, which a
+            # conditional node's body in a CUDA graph cannot hold
+            x = torch.linalg.solve_triangular(L.mT, torch.linalg.solve_triangular(L, b, upper=False), upper=True)
+        else:
+            x = torch.cholesky_solve(b, L)
         ok = (info == 0)[..., None, None] & torch.isfinite(x).all(dim=(-2, -1), keepdim=True)
         x = torch.where(ok, x, torch.zeros_like(x))
         ctx.save_for_backward(L, x, ok)

@@ -63,6 +63,22 @@ KERNELS = {
         "corr_backward_launch",
         [_INT] + [_VOIDP] * 9 + [_INT] * 6 + [ctypes.c_longlong, _INT, _VOIDP],
     ),
+    # the set kernel of an IF node, captured into a CUDA graph
+    # (runtime/graph.py): one launch per node captured
+    "graph_cond": (
+        "graph_cond.cu",
+        "graph_if_begin",
+        [_VOIDP] * 3,
+    ),
+}
+
+# entry points that launch no kernel: source → {entry: argtypes}
+HELPERS = {
+    "graph_cond.cu": {
+        "graph_if_end": [_VOIDP],
+        "graph_stream_create": [ctypes.POINTER(_VOIDP)],
+        "graph_cond_load": [],
+    },
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -182,6 +198,10 @@ def library(name: str) -> ctypes.CDLL:
                 fn = getattr(lib, entry)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+        for entry, argtypes in HELPERS.get(source, {}).items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _LIBS[source] = lib
     return lib
 

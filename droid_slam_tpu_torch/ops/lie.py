@@ -29,6 +29,17 @@ def _sin(x: Tensor) -> Tensor:
     return torch.sin(x.double()).to(x.dtype)
 
 
+def constant(values, like: Tensor) -> Tensor:
+    """``torch.tensor(values)`` with ``like``'s dtype and device, written on
+    the device by fill kernels: a copy from the host would wait for the
+    device, and is refused while a CUDA graph is being captured."""
+    out = like.new_zeros(len(values))
+    for i, v in enumerate(values):
+        if v != 0:
+            out[i].fill_(v)
+    return out
+
+
 def _cross(a: Tensor, b: Tensor) -> Tensor:
     a, b = torch.broadcast_tensors(a, b)
     return torch.linalg.cross(a, b, dim=-1)
@@ -76,7 +87,7 @@ def quat_rotate(q: Tensor, x: Tensor) -> Tensor:
 def identity(shape=(), dtype=torch.float32, device=None) -> Tensor:
     """Identity pose(s) of shape ``shape + (7,)``."""
     pose = torch.zeros(tuple(shape) + (7,), dtype=dtype, device=device)
-    pose[..., 6] = 1.0
+    pose[..., 6].fill_(1.0)
     return pose
 
 
@@ -233,7 +244,7 @@ def to_matrix(pose: Tensor) -> Tensor:
         dim=-2,
     )
     top = torch.cat([R, translation(pose)[..., :, None]], dim=-1)
-    bottom = pose.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(top.shape[:-2] + (1, 4))
+    bottom = constant((0.0, 0.0, 0.0, 1.0), pose).expand(top.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -111,7 +111,7 @@ class TransformJacobians(NamedTuple):
 def relative_poses(poses: Tensor, ii: Tensor, jj: Tensor) -> Tensor:
     """G_ij = G_j ∘ G_i⁻¹ per edge, with the stereo baseline on self edges."""
     Gij = lie.rel(poses[ii], poses[jj])
-    base = Gij.new_tensor(STEREO_BASELINE)
+    base = lie.constant(STEREO_BASELINE, Gij)
     return torch.where((ii == jj)[:, None], base, Gij)
 
 

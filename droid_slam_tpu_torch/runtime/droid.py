@@ -8,8 +8,14 @@ with a stream the trajectory of every frame. Two tracking engines share the
 math and the state layout:
 
 * ``fused=True`` (default): the per-frame step of :mod:`.fused`, all state
-  in one device structure, two host reads per frame; ``terminate`` works on
-  a copy of the tracked state, so it may run more than once;
+  in one device structure. On a CUDA device, from the first frame after
+  initialisation on, each frame is one replay of a CUDA graph of the step
+  (:class:`.graph.CapturedStep`), with its branches as conditional nodes:
+  no host read. ``capture=False`` runs the same step eagerly, reading each
+  branch's predicate on the host (at most 3 reads per frame); it is the
+  plain version the graph is held against. The CPU is always eager.
+  ``terminate`` works on a copy of the tracked state, so it may run more
+  than once;
 * ``fused=False``: the host-driven engine with the reference's per-stage
   objects (:class:`.motion_filter.MotionFilter`,
   :class:`.frontend.DroidFrontend` and its :class:`.factor_graph.FactorGraph`)
@@ -40,6 +46,7 @@ from . import fused as fused_step
 from .backend import DroidBackend
 from .config import DroidConfig
 from .frontend import DroidFrontend
+from .graph import CapturedStep
 from .motion_filter import MotionFilter
 from .trajectory_filler import PoseTrajectoryFiller
 from .video import VideoState, _depth_to_disp_sens
@@ -70,7 +77,9 @@ class Droid:
     without it, ``weights`` names a weights file
     (:func:`..models.weights.load_weights`: the JAX package's ``.msgpack``
     or a reference ``.pth``); with neither, random ``init_params(0)``.
-    ``fused`` picks the tracking engine (module docstring); the host engine
+    ``fused`` picks the tracking engine (module docstring); ``capture``
+    (fused engine, CUDA only) replays the step after initialisation as one
+    CUDA graph, ``capture=False`` runs it eagerly. The host engine
     keeps the JAX package's dtypes: f32 encoders, probe, video features and
     per-edge hidden state, with only the update operator in
     ``config.compute_dtype``. ``ba_mesh`` (optional) is a
@@ -86,6 +95,7 @@ class Droid:
         weights: Optional[str] = None,
         device=None,
         fused: bool = True,
+        capture: bool = True,
         ba_mesh=None,
         visualize: bool = False,
         vis_refresh_hz: float = 2.0,
@@ -103,6 +113,11 @@ class Droid:
             self.net.update if cdt == torch.float32 else copy.deepcopy(self.net.update).to(cdt)
         )
         self.fused = fused
+        self.capture = bool(capture) and fused and self.device.type == "cuda"
+        # host copy of the state's is_init, read after each frame until init ran
+        self._initialized = False
+        # the captured steady-state step, made on the first frame after init
+        self.graph: Optional[CapturedStep] = None
         if fused:
             self._state = fused_step.init_state(config, self.device)
             self._track_step = fused_step.build_track_step(self.net, config)
@@ -143,7 +158,16 @@ class Droid:
             sens = _depth_to_disp_sens(torch.as_tensor(depth, device=self.device), h, w)
         else:
             sens = torch.zeros((h, w), device=self.device)
-        self._track_step(self._state, float(tstamp), img, intr, sens)
+        st = self._state
+        if self._initialized and self.capture:
+            if self.graph is None:
+                self.graph = CapturedStep(self._track_step, st, tstamp, img, intr, sens)
+            self.graph(tstamp, img, intr, sens)
+            return
+        ts = torch.full((), float(tstamp), device=self.device)
+        self._track_step(st, ts, img, intr, sens, initialized=self._initialized)
+        if not self._initialized:
+            self._initialized = bool(st.is_init)
 
     def sync(self) -> None:
         """Block until the queued tracking work has finished on the device."""
@@ -157,8 +181,8 @@ class Droid:
 
     @property
     def counter(self) -> int:
-        """Number of keyframes."""
-        return self._buffers().counter
+        """Number of keyframes (a host read of the fused state's count)."""
+        return int(self._buffers().counter)
 
     @property
     def tstamps(self) -> torch.Tensor:
@@ -206,7 +230,7 @@ class Droid:
         st = self._state
         v = VideoState.__new__(VideoState)  # no default buffers: all are copied in
         v.config = self.config
-        v.counter = st.counter
+        v.counter = int(st.counter)
         if v.counter >= st.poses.shape[0] and not view_only:
             warnings.warn(
                 f"keyframe buffer saturated ({v.counter}/{st.poses.shape[0]}): later "
@@ -270,6 +294,9 @@ class Droid:
         # replace the video with the tracked state between backend steps
         if self.visualizer is not None:
             self.visualizer.close()
+        # the captured step's graph and pools go before the global BA needs
+        # the memory; tracking after terminate captures anew
+        self.graph = None
         if self.fused:
             v = self._sync_fused_state()
         else:

@@ -2,30 +2,34 @@
 
 Counterpart of the JAX package's ``runtime/fused.py``: all tracking state
 (keyframe buffers, factor-graph slots, the inactive edge ring, per-frame
-damping) lives on the device in one :class:`SLAMState`, and
-``track_step(state, ...)`` runs motion filter + keyframe append + graph
-maintenance (aged-edge culling, proximity/NMS edge selection, keyframe
-removal) + operator iterations + windowed dense-Schur BA.
+damping, and the keyframe count, the frontend's frame count and the
+initialised flag as 0-dim tensors) lives on the device in one
+:class:`SLAMState`, and ``track_step(state, ...)`` runs motion filter +
+keyframe append + graph maintenance (aged-edge culling, proximity/NMS edge
+selection, keyframe removal) + operator iterations + windowed dense-Schur
+BA.
 
-JAX's ``lax.cond`` / ``fori_loop`` become Python control flow. The host
-reads the device only for the per-frame branches: the motion-filter
-decision and the keyframe-cull test. The keyframe count, the frontend's
-frame count and the initialised flag are host integers, because every
-change to them follows one of those branches. Graph edits, the greedy
-proximity picks and the BA window arithmetic stay masked tensor code.
+JAX's ``lax.cond`` is :func:`.graph.cond` on a device scalar (keyframe
+append, init, update, cull or keep) and ``fori_loop`` a Python loop of
+static length. Nothing else in the step reads the device: graph edits, the
+greedy proximity picks, the BA window arithmetic and the capacity and
+motion-model guards are masked tensor code, and rows are indexed by device
+scalars through ``index_select``/``index_copy_``. Every write lands in the
+state's own storage (:meth:`SLAMState.assign_`), so the step after
+initialisation can be captured as one CUDA graph (:class:`.graph.CapturedStep`)
+whose branches are conditional nodes.
 
 Semantics follow droid_frontend.py / factor_graph.py / motion_filter.py of
 the reference, with the dense windowed Schur BA of the JAX package. Writes
 that JAX drops with ``mode="drop"`` (an index equal to the buffer length)
 go to a dump row here; gathers for masked candidates use clamped indices.
-The state is updated in place.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -34,6 +38,7 @@ from ..ops import ba as ba_ops
 from ..ops import corr as corr_ops
 from ..ops import lie
 from ..ops import projective as pops
+from .graph import cond
 from .video import _frame_distance, persist_window, read_window
 
 Tensor = torch.Tensor
@@ -81,10 +86,22 @@ class SLAMState:
     inac_next: Tensor  # 0-dim int64 ring pointer
     damping: Tensor  # [B, h, w]
     disps_up: Tensor  # [B, H, W], or [1, 1, 1] unless config.upsample
-    # host counters
-    counter: int = 0  # keyframe count
-    t1: int = 0  # frames tracked by the frontend
-    is_init: bool = False
+    counter: Tensor  # 0-dim int64 keyframe count
+    t1: Tensor  # 0-dim int64 frames tracked by the frontend
+    is_init: Tensor  # 0-dim bool
+
+    def assign_(self, name: str, value) -> None:
+        """Write ``value`` into field ``name``'s own storage: a captured
+        step replays against the storage it was captured with, so no field
+        is ever rebound."""
+        getattr(self, name).copy_(value)
+
+    def clone(self) -> "SLAMState":
+        return SLAMState(**{f.name: getattr(self, f.name).clone() for f in dataclasses.fields(self)})
+
+    def storage(self) -> Dict[str, int]:
+        """The data pointer of every field."""
+        return {f.name: getattr(self, f.name).data_ptr() for f in dataclasses.fields(self)}
 
 
 def _edge_slots(config) -> int:
@@ -136,6 +153,9 @@ def init_state(config, device) -> SLAMState:
         inac_next=zeros(dtype=long),
         damping=torch.full((B, h, w), 1e-6, device=device),
         disps_up=zeros(B, H, W) if config.upsample else zeros(1, 1, 1),
+        counter=zeros(dtype=long),
+        t1=zeros(dtype=long),
+        is_init=zeros(dtype=torch.bool),
     )
 
 
@@ -147,6 +167,11 @@ def _set_rows(buf: Tensor, idx: Tensor, src) -> Tensor:
     if not torch.is_tensor(src):
         src = torch.full((idx.shape[0],) + buf.shape[1:], src, dtype=buf.dtype, device=buf.device)
     return ext.index_copy_(0, idx, src.to(buf.dtype))[:n]
+
+
+def _set_rows_(buf: Tensor, idx: Tensor, src) -> None:
+    """:func:`_set_rows` into buf's own storage."""
+    buf.copy_(_set_rows(buf, idx, src))
 
 
 def _bidir_distance(st: SLAMState, ii: Tensor, jj: Tensor, beta: float) -> Tensor:
@@ -167,13 +192,13 @@ def _rm_factors(st: SLAMState, drop: Tensor, store: bool) -> None:
         K = st.inac_ii.shape[0]
         order = torch.cumsum(drop.long(), 0) - 1
         dst = torch.where(drop, (st.inac_next + order) % K, K)
-        st.inac_ii = _set_rows(st.inac_ii, dst, st.ii)
-        st.inac_jj = _set_rows(st.inac_jj, dst, st.jj)
-        st.inac_valid = _set_rows(st.inac_valid, dst, True)
-        st.inac_target = _set_rows(st.inac_target, dst, st.target)
-        st.inac_weight = _set_rows(st.inac_weight, dst, st.weight)
-        st.inac_next = (st.inac_next + drop.sum()) % K
-    st.valid = st.valid & ~drop
+        _set_rows_(st.inac_ii, dst, st.ii)
+        _set_rows_(st.inac_jj, dst, st.jj)
+        _set_rows_(st.inac_valid, dst, True)
+        _set_rows_(st.inac_target, dst, st.target)
+        _set_rows_(st.inac_weight, dst, st.weight)
+        st.assign_("inac_next", (st.inac_next + drop.sum()) % K)
+    st.valid &= ~drop
 
 
 def _add_edges(
@@ -222,35 +247,33 @@ def _add_edges(
     cj = cand_jj.clamp(0, B - 1)
     tgt, _ = pops.projective_transform(st.poses, st.disps, st.intrinsics, ci, cj)
 
-    st.ii = _set_rows(st.ii, slots, cand_ii)
-    st.jj = _set_rows(st.jj, slots, cand_jj)
-    st.age = _set_rows(st.age, slots, 0)
-    st.valid = _set_rows(st.valid, slots, True)
-    st.enet = _set_rows(st.enet, slots, st.nets[ci])
-    st.target = _set_rows(st.target, slots, tgt)
-    st.weight = _set_rows(st.weight, slots, 0.0)
+    _set_rows_(st.ii, slots, cand_ii)
+    _set_rows_(st.jj, slots, cand_jj)
+    _set_rows_(st.age, slots, 0)
+    _set_rows_(st.valid, slots, True)
+    _set_rows_(st.enet, slots, st.nets[ci])
+    _set_rows_(st.target, slots, tgt)
+    _set_rows_(st.weight, slots, 0.0)
 
 
-def _rm_keyframe(st: SLAMState, ix: int) -> None:
-    """Remove keyframe ix: shift buffers down, drop/reindex edges
-    (factor_graph.py:166-195)."""
+def _rm_keyframe(st: SLAMState, ix) -> None:
+    """Remove keyframe ix (an int or a 0-dim tensor): shift buffers down,
+    drop/reindex edges (factor_graph.py:166-195)."""
     B = st.poses.shape[0]
     idx = torch.arange(B, device=st.poses.device)
     src = torch.where(idx >= ix, (idx + 1).clamp(max=B - 1), idx)
     for name in ("tstamp", "images", "poses", "disps", "disps_sens", "intrinsics",
                  "fmaps", "nets", "inps", "damping"):
-        setattr(st, name, getattr(st, name)[src])
+        st.assign_(name, getattr(st, name)[src])
     if st.disps_up.shape[0] == B:
-        st.disps_up = st.disps_up[src]
+        st.assign_("disps_up", st.disps_up[src])
 
-    touching = st.valid & ((st.ii == ix) | (st.jj == ix))
-    st.valid = st.valid & ~touching
-    st.ii = torch.where(st.ii > ix, st.ii - 1, st.ii)
-    st.jj = torch.where(st.jj > ix, st.jj - 1, st.jj)
-    inac_touching = st.inac_valid & ((st.inac_ii == ix) | (st.inac_jj == ix))
-    st.inac_valid = st.inac_valid & ~inac_touching
-    st.inac_ii = torch.where(st.inac_ii > ix, st.inac_ii - 1, st.inac_ii)
-    st.inac_jj = torch.where(st.inac_jj > ix, st.inac_jj - 1, st.inac_jj)
+    st.valid &= ~((st.ii == ix) | (st.jj == ix))
+    st.assign_("ii", torch.where(st.ii > ix, st.ii - 1, st.ii))
+    st.assign_("jj", torch.where(st.jj > ix, st.jj - 1, st.jj))
+    st.inac_valid &= ~((st.inac_ii == ix) | (st.inac_jj == ix))
+    st.assign_("inac_ii", torch.where(st.inac_ii > ix, st.inac_ii - 1, st.inac_ii))
+    st.assign_("inac_jj", torch.where(st.inac_jj > ix, st.inac_jj - 1, st.inac_jj))
 
 
 # -----------------------------------------------------------------------------
@@ -264,8 +287,8 @@ def _suppression_radius(i, j, nms: int):
 
 def _proximity_candidates(
     st: SLAMState,
-    t0: int,  # candidate source range [t0, t)
-    t1r: int,  # candidate target range [t1r, t)
+    t0,  # candidate source range [t0, t): an int or a 0-dim tensor
+    t1r,  # candidate target range [t1r, t)
     rows: int,  # static pad of the source range
     cols: int,  # static pad of the target range
     rad: int,
@@ -330,9 +353,9 @@ def _proximity_candidates(
     cnt = base_ok.sum()
     picks_i, picks_j, picks_ok = [], [], []
     for _ in range(_n_greedy(max_factors)):
-        k = torch.argmin(d)
-        si, sj = ii_g[k], jj_g[k]
-        ok = (d[k] <= thresh) & (cnt <= max_factors)
+        k = torch.argmin(d).reshape(1)  # picked by index_select: a tensor index would read it
+        si, sj = ii_g.index_select(0, k)[0], jj_g.index_select(0, k)[0]
+        ok = (d.index_select(0, k)[0] <= thresh) & (cnt <= max_factors)
         ball = ((ii_g - si).abs() + (jj_g - sj).abs()) <= _suppression_radius(si, sj, nms)
         d = torch.where(ok & ball, inf, d)
         cnt = cnt + 2 * ok.long()
@@ -402,13 +425,13 @@ def build_track_step(net, config):
             st.enet, st.inps[ii], corr, motn, k_rel, Ka, valid
         )
         target = coords1 + delta
-        st.enet = net_e.to(st.enet.dtype)
-        st.target = target
-        st.weight = wgt
+        st.assign_("enet", net_e)
+        st.assign_("target", target)
+        st.assign_("weight", wgt)
 
         # persist damping at frames touched by active edges
         touched = torch.zeros(Ka, dtype=torch.int64, device=dev).index_add_(0, k_rel, valid.long()) > 0
-        st.damping = persist_window(st.damping, eta_win, touched, kf0)
+        st.assign_("damping", persist_window(st.damping, eta_win, touched, kf0))
 
         # BA over active + inactive edges
         inac_ok = st.inac_valid & (st.inac_ii >= t0 - 3) & (st.inac_jj >= t0 - 3)
@@ -427,38 +450,50 @@ def build_track_step(net, config):
                 ba_tgt, ba_wgt, eta_full, ba_ii, ba_jj, ba_ok,
                 t0, t1, kf0_ba, Pw, Ka, schur_dtype=cdt,
             )
-        st.poses = poses
-        st.disps = disps.clamp(min=0.001)
-        st.age = st.age + valid.long()
+        st.assign_("poses", poses)
+        st.assign_("disps", disps.clamp(min=0.001))
+        st.age += valid.long()
 
         if config.upsample:
             # full-res disparity maintenance (depth_video.py:126-130)
             up_win = upsample_disp(read_window(st.disps, kf0, Ka), upmask.float())
-            st.disps_up = persist_window(st.disps_up, up_win, touched, kf0)
+            st.assign_("disps_up", persist_window(st.disps_up, up_win, touched, kf0))
 
     # ------------------------------ track step -----------------------------
+
+    def probe(st, fmap32):
+        """Mean flow revision of the f32 operator between the last keyframe
+        and this frame (motion_filter.py:45-93)."""
+        coords0 = pops.coords_grid(h, w, device=fmap32.device)[None]
+        corr = corr_ops.corr_lookup(st.pfmap[0][None], fmap32[0][None], coords0)
+        zero_flow = torch.zeros((1, h, w, 4), device=fmap32.device)
+        _, delta, _ = update32(st.pnet[None], st.pinp[None], corr, zero_flow)
+        return delta.norm(dim=-1).mean()
 
     def append_keyframe(st, tstamp, image, intrinsics, disp_sens, fmap32):
         # the context and the stored image are the left image's
         net32, inp32 = net.context(image[:1])
-        ix = st.counter
-        st.tstamp[ix] = tstamp
-        st.images[ix] = image[0]
-        if ix == 0:
-            st.poses[ix] = lie.identity((), device=st.poses.device)
-            st.disps[ix] = 1.0
-        st.disps_sens[ix] = disp_sens
-        st.intrinsics[ix] = intrinsics / 8.0
-        st.fmaps[ix] = fmap32.to(cdt)
-        st.nets[ix] = net32[0].to(cdt)
-        st.inps[ix] = inp32[0].to(cdt)
-        st.pfmap, st.pnet, st.pinp = fmap32, net32[0], inp32[0]
-        st.counter = ix + 1
+        ix = st.counter.reshape(1)
+        first = st.counter == 0
+        st.tstamp.index_copy_(0, ix, tstamp.reshape(1))
+        st.images.index_copy_(0, ix, image[:1])
+        identity = lie.identity((1,), device=st.poses.device)
+        st.poses.index_copy_(0, ix, torch.where(first, identity, st.poses.index_select(0, ix)))
+        st.disps.index_copy_(0, ix, torch.where(first, 1.0, st.disps.index_select(0, ix)))
+        st.disps_sens.index_copy_(0, ix, disp_sens[None])
+        st.intrinsics.index_copy_(0, ix, (intrinsics / 8.0)[None])
+        st.fmaps.index_copy_(0, ix, fmap32[None].to(cdt))
+        st.nets.index_copy_(0, ix, net32.to(cdt))
+        st.inps.index_copy_(0, ix, inp32.to(cdt))
+        st.assign_("pfmap", fmap32)
+        st.assign_("pnet", net32[0])
+        st.assign_("pinp", inp32[0])
+        st.counter += 1
 
     def init_branch(st):
         """Initialisation over the first ``warmup`` keyframes
-        (droid_frontend.py:78-113)."""
-        t1 = st.counter
+        (droid_frontend.py:78-113); runs where counter == warmup."""
+        t1 = warmup
         dev = st.poses.device
         # in stereo the neighbourhood leaves out |a − b| = 1, as the JAX
         # package's fused.py:642-645 does
@@ -483,74 +518,78 @@ def build_track_step(net, config):
             st.poses[t1] = st.poses[t1 - 1]
             st.disps[t1] = st.disps[t1 - 4 : t1].mean()
         _rm_factors(st, st.valid & (st.ii < warmup - 4), store=True)
-        st.is_init = True
-        st.t1 = t1
+        st.is_init.fill_(True)
+        st.t1.fill_(t1)
 
     def update_branch(st):
         """Per-keyframe frontend update (droid_frontend.py:35-76)."""
         t1 = st.t1 + 1
-        st.t1 = t1
-        dev = st.poses.device
+        st.assign_("t1", t1)
 
         _rm_factors(st, st.valid & (st.age > config.max_age), store=True)
         ci, cj, cok = _proximity_candidates(
-            st, t1 - 5, max(t1 - config.frontend_window, 0), 5, config.frontend_window,
+            st, t1 - 5, (t1 - config.frontend_window).clamp(min=0), 5, config.frontend_window,
             rad=config.frontend_radius, nms=config.frontend_nms,
             thresh=config.frontend_thresh, beta=beta, stereo=stereo, max_factors=Nmax,
         )
         _add_edges(st, ci, cj, cok, evict=True, budget=Nmax)
 
         # RGB-D prior seeds the new keyframe disparity
-        sens = st.disps_sens[t1 - 1]
-        st.disps[t1 - 1] = torch.where(sens > 0, sens, st.disps[t1 - 1])
+        new = (t1 - 1).reshape(1)
+        sens = st.disps_sens.index_select(0, new)
+        st.disps.index_copy_(0, new, torch.where(sens > 0, sens, st.disps.index_select(0, new)))
 
         for _ in range(config.frontend_iters1):
             update_iteration(st, 0)
 
-        # keyframe keep/cull test: a host read
-        pair = torch.tensor([t1 - 3, t1 - 2], device=dev)
-        d = _bidir_distance(st, pair[:1], pair[1:], beta)[0]
-        if float(d) < config.keyframe_thresh:
+        # keyframe keep/cull test
+        d = _bidir_distance(st, (t1 - 3).reshape(1), (t1 - 2).reshape(1), beta)[0]
+
+        def cull(st):
             _rm_keyframe(st, t1 - 2)
             st.counter -= 1
             st.t1 -= 1
-        else:
+
+        def keep(st):
             for _ in range(config.frontend_iters2):
                 update_iteration(st, 0)
 
-        # motion model: seed the next keyframe from the last one
-        t1n = st.t1
-        if t1n < st.poses.shape[0]:
-            st.poses[t1n] = st.poses[t1n - 1]
-            st.disps[t1n] = st.disps[t1n - 1].mean()
+        cond(d < config.keyframe_thresh, cull, keep, st)
+
+        # motion model: seed the next keyframe from the last one (no write
+        # once the buffer is full)
+        t1n = st.t1.reshape(1)
+        _set_rows_(st.poses, t1n, st.poses.index_select(0, t1n - 1))
+        _set_rows_(st.disps, t1n, st.disps.index_select(0, t1n - 1).mean().expand(1, h, w))
 
     def track_step(
         st: SLAMState,
-        tstamp: float,
+        tstamp: Tensor,  # 0-dim f32
         image: Tensor,  # [rig, H, W, 3] uint8 (left, right)
         intrinsics: Tensor,  # [4] full-res
         disp_sens: Tensor,  # [h, w] inverse-depth prior (zeros if none)
+        initialized: bool,  # init has run (st.is_init holds): the steady-state step
     ) -> None:
         # ---- motion filter (motion_filter.py:45-93), f32 ----
         # fnet over every rig image (all are stored); the probe compares the
         # left images
         fmap32 = net.features(image)  # [rig, h, w, 128]
-        if st.counter > 0:
-            coords0 = pops.coords_grid(h, w, device=fmap32.device)[None]
-            corr = corr_ops.corr_lookup(st.pfmap[0][None], fmap32[0][None], coords0)
-            zero_flow = torch.zeros((1, h, w, 4), device=fmap32.device)
-            _, delta, _ = update32(st.pnet[None], st.pinp[None], corr, zero_flow)
-            delta = float(delta.norm(dim=-1).mean())  # the per-frame host read
+        if initialized:  # there are keyframes
+            delta = probe(st, fmap32)
         else:
-            delta = 1e9
+            delta = torch.full((), 1e9, device=fmap32.device)
+            cond(st.counter > 0, lambda s: delta.copy_(probe(s, fmap32)), None, st)
         # capacity gate: at counter == buffer keyframing stops
         has_room = st.counter < st.poses.shape[0]
-        if (st.counter == 0 or delta > config.filter_thresh) and has_room:
+        is_kf = ((st.counter == 0) | (delta > config.filter_thresh)) & has_room
+
+        def keyframe(st):
             append_keyframe(st, tstamp, image, intrinsics, disp_sens, fmap32)
 
-        if not st.is_init and st.counter == warmup:
-            init_branch(st)
-        elif st.is_init and st.t1 < st.counter:
-            update_branch(st)
+        cond(is_kf, keyframe, None, st)
+        if initialized:
+            cond(st.t1 < st.counter, update_branch, None, st)
+        else:
+            cond(~st.is_init & (st.counter == warmup), init_branch, None, st)
 
     return track_step

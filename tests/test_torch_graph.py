@@ -73,8 +73,8 @@ def _port_state(jst):
             continue
         v = np.array(getattr(jst, name))
         fields[name] = torch.from_numpy(v.astype(np.int64) if v.dtype == np.int32 else v)
-    return tfused.SLAMState(**fields, counter=int(jst.counter), t1=int(jst.t1),
-                            is_init=bool(jst.is_init))
+    return tfused.SLAMState(**fields, counter=torch.tensor(int(jst.counter)), t1=torch.tensor(int(jst.t1)),
+                            is_init=torch.tensor(bool(jst.is_init)))
 
 
 def _assert_same_state(jst, pst):
