@@ -70,11 +70,19 @@ Phases, each of which fails the run:
      eager engine's frames/s) and held against phase 5's own Droid; and
      whether a host frame's upload waits for the card;
   6. drive the terminate path, Droid.terminate(), on phase 5's Droid (47
-     keyframes) twice, as bench.py does; the launch counts of each show it
-     went through the split pair, 4 levels x 19 global-BA steps x the
-     update-operator chunks, and the two must repeat: the same backend edge
-     counts and chunks, trajectories within 1e-6. Then one more terminate
-     under torch.profiler;
+     keyframes) twice, as bench.py does, each global-BA pass an eager
+     step, a capture into one CUDA graph and replays; the launch counts of
+     each show it went through the split pair, 4 levels x 19 global-BA
+     steps x the update-operator chunks on the card (the wrappers' counts
+     less the captures' plus the replays': a wrapper counts a captured
+     launch once), and the two must repeat: the same backend edge counts
+     and chunks, trajectories within 1e-6. Then one more terminate under
+     torch.profiler;
+  6b. terminate() and terminate(stream) (phase 5's frames) of the same
+     tracked state with capture=False and with capture: the trajectories,
+     the terminated poses and disparities and each pass's edges and chunks
+     bit for bit, every replay under sync debug mode "error", the walls
+     side by side;
   7. the synthetic protocol with the shipped weights
      (weights/droid_synth.msgpack, read by the port's own msgpack reader)
      through droid_slam_tpu_torch/apps/evaluate.py's run_slam: rows 1-6 the
@@ -89,20 +97,24 @@ Phases, each of which fails the run:
      row 9 the cull replay of tests/test_engine_equivalence.py with the fixture
      weights on the GPU and the CPU: the same keyframes after every frame,
      at least one cull, poses within 5e-3;
-  8. the host-driven engine, Droid(fused=False): (a) phase 5's frames at
-     the bench configuration, whose lookups all read the f32 video
-     features: corr_level_f32 launches equal to 4 x (probes + 16
+  8. the host-driven engine, Droid(fused=False), its factor graph's
+     operator steps captured: (a) phase 5's frames at the bench
+     configuration, whose lookups all read the f32 video features:
+     corr_level_f32 launches on the card equal to 4 x (probes + 16
      initialisation iterations + 6 per later keyframe), none in bf16; the
      tracking walls, 5 profiled frames (busy share beside phase 5's), one
-     terminate() launching the split pair 4 x (7 + 12) x chunks times, then
-     export_map into DIR/host_map and the consistent point cloud of the
-     terminated video against the same from CPU copies (masks agreeing on
-     >= 99.9% of the pixels, shared points within 1e-4 of their largest
-     |p|); (b) the
-     cull replay through the host engine on the card, the fused engine on
-     the card and the host engine on the CPU: the same keyframes after
-     every frame, at least one cull, poses within 5e-3; (c) phase 7's row 1
-     through the host engine, inside the same gates;
+     terminate() running the split pair 4 x (7 + 12) x chunks times; the
+     same frames and terminate() with capture=False, timed over the same
+     window and held bit for bit (keyframes, edges, poses, disparities,
+     trajectory); then export_map into DIR/host_map and the consistent
+     point cloud of the terminated video against the same from CPU copies
+     (masks agreeing on >= 99.9% of the pixels, shared points within 1e-4
+     of their largest |p|); (b) the cull replay through the host engine on
+     the card (its replays under sync debug mode "error"), the same with
+     capture=False (bit for bit), the fused engine on the card and the
+     host engine on the CPU: the same keyframes after every frame, at
+     least one cull, poses within 5e-3; (c) phase 7's row 1 through the
+     host engine, inside the same gates;
   9. training: (a) run before phase 4, beside the other kernel checks
      (late in a run torch.profiler has dropped device events):
      corr_backward, the backward of the lookup (csrc/corr_backward.cu:
@@ -164,19 +176,26 @@ Phases, each of which fails the run:
      the 240-frame courtyard loop (seed 7) rendered at 384x512 and at
      192x256 and cached in a temporary directory, both renders timed; (b)
      tools/longloop.py's run() at 384x512 in bf16 with the shipped
-     weights: 240 finite filled poses, keyframes in LOOP_KEYFRAMES, each
-     global-BA pass's corr_slab and corr_window launches equal to 4 x
-     steps x chunks and its edges at most 16 per keyframe, corr_level
-     launched in bf16 and in f32 while tracking; the walls, the ATE and
-     scale before and after terminate, the peak of allocated memory by
-     stage and each pass's edges and chunks printed, not gated, and the
-     terminate once more under torch.profiler, device activity only
-     (device ms by kernel, busy share); (c) the quarter-loop
+     weights: 240 finite filled poses, keyframes in LOOP_KEYFRAMES, the
+     keyframes and the ATE after terminate those of LOOP_REFERENCE (within
+     LOOP_ATE_TOL), each global-BA pass's corr_slab and corr_window
+     launches on the card equal to 4 x steps x chunks and its edges at
+     most 16 per keyframe, corr_level launched in bf16 and in f32 while
+     tracking; the captured steps' graphs, replays, capture seconds and
+     pools; the walls, the ATE and
+     scale before and after terminate, the peaks of allocated and
+     reserved memory by stage and each pass's edges and chunks printed,
+     not gated, and the terminate once more under torch.profiler, device
+     activity only (device ms by kernel, busy share), then with
+     capture=False and with capture from an emptied allocator cache
+     (walls, peaks of allocated and reserved memory); (c) the quarter-loop
      gate of tests/test_longloop.py: the first 60 frames at 192x256, f32,
      buffer 96: keyframes, ATE and scale within its bounds; (d)
      tools/backend_probe.py at 200 keyframes and 240x320: its edges equal
      to the distinct pairs of the same draws counted on the host, the
-     split pair launched 4 x steps x chunks times in the timed steps, one
+     timed steps replays of the step the warm call captured (its capture
+     seconds and pool printed), the split pair run 4 x steps x chunks
+     times in them, one
      more step profiled through device_ms (device ms by kernel, the busy
      share against an unprofiled step), the peak of allocated memory; (e)
      tools/eval_sweep.py with the shipped weights over seed 7 in f32 and
@@ -1196,11 +1215,25 @@ def range_ms(events, DeviceType, name: str):
     return 0.0, 0
 
 
+def capture_record(stats) -> dict:
+    """What a run's captured factor-graph steps cost (runtime/factor_graph.py
+    CaptureStats): graphs captured, the most held at once, replays, capture
+    seconds and pool bytes."""
+    return {k: getattr(stats, k) for k in ("graphs", "held_max", "replays", "capture_s", "pool_bytes")}
+
+
+def split_launches_ok(launches, expected: int) -> bool:
+    return expected > 0 and launches.get("corr_slab") == launches.get("corr_window") == expected
+
+
 def timed_terminate(torch, np, kernels, droid):
     """One Droid.terminate() with the launch counts set to 0 before it and
     read after it: (the run's record, the trajectory). The split pair must
-    launch 4 levels x (7 + 12) global-BA steps x the update-operator
-    chunks times."""
+    run 4 levels x (7 + 12) global-BA steps x the update-operator chunks
+    times on the card. A wrapper counts a launch when it queues it, so a
+    captured step's launches once, while the card runs them on every
+    replay: the card's launches are the wrappers' counts less the captures'
+    plus the replays' (Droid.terminate_stats)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -1210,18 +1243,103 @@ def timed_terminate(torch, np, kernels, droid):
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     launches.update(kernels.DTYPE_LAUNCHES)
+    stats = droid.terminate_stats
     steps_x_chunks = sum(steps * chunks for steps, (_, chunks) in zip((7, 12), droid.backend_runs))
     run = dict(
-        wall_s=wall, launches=launches, backend_runs=droid.backend_runs,
-        expected_split_launches=4 * steps_x_chunks,
+        wall_s=wall, launches=launches, device_launches=stats.device_launches(launches),
+        replayed_launches=dict(stats.replayed_launches), capture=capture_record(stats),
+        backend_runs=droid.backend_runs, expected_split_launches=4 * steps_x_chunks,
         finite=bool(np.isfinite(traj).all()),
         shape_ok=traj.shape == (droid.counter, 7),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
     )
-    run["ok"] = bool(run["finite"] and run["shape_ok"] and steps_x_chunks > 0
-                     and launches.get("corr_slab") == launches.get("corr_window") == run["expected_split_launches"])
+    run["ok"] = bool(run["finite"] and run["shape_ok"]
+                     and split_launches_ok(run["device_launches"], run["expected_split_launches"]))
     log(f"  terminate: {run}")
     return run, traj
+
+
+@contextlib.contextmanager
+def sync_checked_replays(torch, graph):
+    """Every CUDA graph replay (runtime/graph.py Captured.replay) inside
+    runs under sync debug mode "error": a host read there raises. Yields a
+    list that holds one entry per replay."""
+    real = graph.Captured.replay
+    checked = []
+
+    def replay(self):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            real(self)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        checked.append(1)
+
+    graph.Captured.replay = replay
+    try:
+        yield checked
+    finally:
+        graph.Captured.replay = real
+
+
+def terminate_capture_vs_eager(torch, np, graph, droid, stream):
+    """Phase 6b: terminate() and terminate(stream) of phase 5's tracked
+    state with capture=False and with capture (Droid.capture, which each
+    terminate reads), in turns (eager, captured, captured, eager): the
+    trajectories, the terminated poses and disparities and each pass's
+    edges and chunks bit for bit, every replay under sync debug mode
+    "error"; then one terminate() of each under torch.profiler (device
+    activity only): each side's device time, and its busy share of that
+    side's mean terminate() wall."""
+    kept = droid.capture
+    runs = {"terminate": [], "terminate_stream": []}
+    try:
+        for name, arg in (("terminate", None), ("terminate_stream", stream)):
+            for capture in (False, True, True, False):
+                droid.capture = capture
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with sync_checked_replays(torch, graph) as checked:
+                    traj = droid.terminate() if arg is None else droid.terminate(iter(arg))
+                torch.cuda.synchronize()
+                v = droid.video
+                runs[name].append(dict(capture=capture, wall_s=time.perf_counter() - t0, traj=traj,
+                                       poses=v.poses[: v.counter].clone(), disps=v.disps[: v.counter].clone(),
+                                       backend_runs=droid.backend_runs, stats=capture_record(droid.terminate_stats),
+                                       sync_checked_replays=len(checked)))
+        device_ms = {}
+        for capture in (False, True):
+            droid.capture = capture
+            device_ms["captured" if capture else "eager"] = profile_terminate(
+                torch, droid.terminate, None, None, "")["device_ms"]
+    finally:
+        droid.capture = kept
+    res = dict(cases={}, device_ms=device_ms)
+    for name, rs in runs.items():
+        first = rs[0]
+        same = dict(trajectory=all(np.array_equal(r["traj"], first["traj"]) for r in rs),
+                    poses=all(torch.equal(r["poses"], first["poses"]) for r in rs),
+                    disps=all(torch.equal(r["disps"], first["disps"]) for r in rs),
+                    backend_runs=all(r["backend_runs"] == first["backend_runs"] for r in rs))
+        walls = {side: [r["wall_s"] for r in rs if r["capture"] == (side == "captured")]
+                 for side in ("eager", "captured")}
+        captured = [r for r in rs if r["capture"]]
+        case = dict(same=same, walls_s=walls, capture=captured[0]["stats"],
+                    sync_checked_replays=[r["sync_checked_replays"] for r in captured])
+        # every replay checked, and nothing captured with capture=False
+        case["ok"] = bool(all(same.values()) and all(r["stats"]["replays"] > 0 for r in captured)
+                          and all(r["sync_checked_replays"] == r["stats"]["replays"] for r in captured)
+                          and all(r["stats"]["graphs"] == 0 for r in rs if not r["capture"]))
+        res["cases"][name] = case
+        log(f"  {name}: walls (eager, captured, captured, eager) "
+            + ", ".join(f"{r['wall_s']:.3f}" for r in rs) + f" s, {same}, captured steps {case['capture']}, "
+            f"replays under sync debug 'error' {case['sync_checked_replays']}: {'ok' if case['ok'] else 'FAILED'}")
+    t = res["cases"]["terminate"]["walls_s"]
+    res["busy_share"] = {side: res["device_ms"][side] / (1e3 * sum(t[side]) / len(t[side]))
+                         for side in ("eager", "captured")}
+    res["ok"] = all(c["ok"] for c in res["cases"].values())
+    log(f"  terminate() device ms {res['device_ms']}, busy share of the mean walls {res['busy_share']}")
+    return res
 
 
 def repeat_of(np, runs, trajs):
@@ -1236,13 +1354,15 @@ def repeat_of(np, runs, trajs):
     return repeat
 
 
-def terminate_path(torch, np, kernels, droid, out_dir):
+def terminate_path(torch, np, kernels, graph, droid, seed: int, out_dir):
     """Phase 6: Droid.terminate() twice on phase 5's Droid, which must
     repeat (the same backend edge counts and chunks, trajectories within
-    1e-6), then once more under torch.profiler. Also returns, apart from
-    the record, what phase 10a compares its sharded terminate with: the
-    tracked poses, and the trajectory, poses and disparities after the
-    first terminate, on the host."""
+    1e-6), then once more under torch.profiler; then phase 6b, the
+    captured terminate against capture=False, with phase 5's frames as the
+    fill stream. Also returns, apart from the record, what phase 10a
+    compares its sharded terminate with: the tracked poses, and the
+    trajectory, poses and disparities after the first terminate, on the
+    host."""
     tracked = droid.poses.cpu()
     runs, trajs = [], []
     for k in range(2):
@@ -1281,8 +1401,14 @@ def terminate_path(torch, np, kernels, droid, out_dir):
         top_kernels_ms={k[:60]: v / 1e3 for k, v in top},
     )
     log(f"  profile: {profile_res}")
-    return dict(runs=runs, repeat=repeat, profile=profile_res, keyframes=droid.counter,
-                ok=all(r["ok"] for r in runs) and repeat["ok"]), ref
+
+    log("phase 6b: the captured terminate vs capture=False, bit for bit, no host read in a replay")
+    cfg = droid.config
+    frames, intr = bench_frames(torch, np, cfg, seed)
+    stream = [(t, frames[t % len(frames)].cpu().numpy(), intr.cpu().numpy()) for t in range(droid.counter)]
+    versus = terminate_capture_vs_eager(torch, np, graph, droid, stream)
+    return dict(runs=runs, repeat=repeat, profile=profile_res, keyframes=droid.counter, capture_vs_eager=versus,
+                ok=all(r["ok"] for r in runs) and repeat["ok"] and versus["ok"]), ref
 
 
 WEIGHTS = ROOT / "weights" / "droid_synth.msgpack"
@@ -1480,52 +1606,81 @@ def synthetic_protocol(torch, np, kernels, evaluate, DroidConfig, render_sequenc
 def host_engine_path(torch, np, kernels, Droid, DroidConfig, init_params, visualization, seed: int,
                      out_dir, fused_busy_share: float):
     """Phase 8a: Droid(fused=False) at the bench configuration over phase
-    5's frames: the launch counts of the 42 tracked frames (every lookup of
-    the host engine reads the f32 video features), 5 more frames under
-    torch.profiler, one terminate() (the split pair), then export_map and
-    the consistent point cloud of the terminated video on the card against
-    the same on CPU copies."""
+    5's frames, with its factor graph's steps captured: the launch counts
+    of the 42 tracked frames (every lookup of the host engine reads the
+    f32 video features; on the card, the wrappers' counts less the
+    captures' plus the replays'), 5 more frames under torch.profiler, one
+    terminate() (the split pair); the same 47 frames and terminate() through
+    Droid(fused=False, capture=False), timed over the same window and held
+    bit for bit (keyframes, edges, poses, disparities, the trajectory);
+    then export_map and the consistent point cloud of the terminated video
+    on the card against the same on CPU copies."""
     import tempfile
     from types import SimpleNamespace
 
     cfg = DroidConfig(**BENCH_CONFIG)
-    droid = Droid(cfg, params=init_params(seed), device=torch.device("cuda"), fused=False)
     frames, intr = bench_frames(torch, np, cfg, seed)
     n_timed = 30
+    droid = Droid(cfg, params=init_params(seed), device=torch.device("cuda"), fused=False)
     t, warm_s, elapsed, _, launches, dtype_launches = timed_tracking(
         torch, kernels, droid, frames, intr, cfg.warmup + 4, n_timed)
+    stats = droid.frontend.graph.stats
     # the probe on every frame after the first, 16 initialisation
     # iterations, 4 + 2 per keyframe after the warmup (no cull); 4 levels each
     lookups = (t - 1) + 16 + (cfg.frontend_iters1 + cfg.frontend_iters2) * (t - cfg.warmup)
+    device = stats.device_launches({**launches, **dtype_launches})
     res = dict(
         frames=t, keyframes=droid.counter, fps=n_timed / elapsed, timed_s=elapsed, warmup_s=warm_s,
-        launches=launches, dtype_launches=dtype_launches, n_edges=len(droid.edges),
-        n_inactive=len(droid.inactive_edges), expected_f32_launches=4 * lookups,
+        launches=launches, dtype_launches=dtype_launches, device_launches=device, capture=capture_record(stats),
+        n_edges=len(droid.edges), n_inactive=len(droid.inactive_edges), expected_f32_launches=4 * lookups,
         finite=bool(torch.isfinite(droid.poses).all() and torch.isfinite(droid.disps).all()),
     )
-    res["tracking_ok"] = bool(res["finite"] and droid.counter == t
-                              and launches["corr_level"] == res["expected_f32_launches"]
-                              and dtype_launches.get("corr_level_f32") == res["expected_f32_launches"]
+    res["tracking_ok"] = bool(res["finite"] and droid.counter == t and stats.replays > 0
+                              and device["corr_level"] == res["expected_f32_launches"]
+                              and device.get("corr_level_f32") == res["expected_f32_launches"]
                               and "corr_level_bf16" not in dtype_launches)
     log(f"  tracking: {res}")
     res["profile"] = profile_tracking(torch, droid, frames, intr, t, res["fps"], out_dir, "profile_host")
     log(f"  profile: {res['profile']}; device busy share {res['profile']['device_busy_share']:.3f} "
         f"(fused engine, phase 5: {fused_busy_share:.3f})")
 
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    traj = droid.terminate()
-    torch.cuda.synchronize()
-    steps_x_chunks = sum(steps * chunks for steps, (_, chunks) in zip((7, 12), droid.backend_runs))
-    term = dict(wall_s=time.perf_counter() - t0, keyframes=droid.counter, backend_runs=droid.backend_runs,
-                launches={**kernels.LAUNCHES, **kernels.DTYPE_LAUNCHES},
-                expected_split_launches=4 * steps_x_chunks, finite=bool(np.isfinite(traj).all()))
-    term["ok"] = bool(term["finite"] and traj.shape == (droid.counter, 7) and steps_x_chunks > 0
-                      and term["launches"]["corr_slab"] == term["launches"]["corr_window"]
-                      == term["expected_split_launches"])
+    # the same frames (the timed window, then the profiled ones) eagerly
+    eager = Droid(cfg, params=init_params(seed), device=torch.device("cuda"), fused=False, capture=False)
+    _, _, elapsed, *_ = timed_tracking(torch, kernels, eager, frames, intr, cfg.warmup + 4, n_timed)
+    for k in range(t, t + 5):
+        eager.track(k, frames[k % len(frames)], intrinsics=intr)
+    eager.sync()
+    res["eager_fps"] = n_timed / elapsed
+    same = dict(keyframes=eager.counter == droid.counter, tstamps=torch.equal(eager.tstamps, droid.tstamps),
+                poses=torch.equal(eager.poses, droid.poses), disps=torch.equal(eager.disps, droid.disps),
+                edges=eager.edges == droid.edges, inactive_edges=eager.inactive_edges == droid.inactive_edges)
+
+    term, trajs = {}, {}
+    for name, d in (("captured", droid), ("eager", eager)):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        trajs[name] = d.terminate()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        queued = {**kernels.LAUNCHES, **kernels.DTYPE_LAUNCHES}
+        steps_x_chunks = sum(steps * chunks for steps, (_, chunks) in zip((7, 12), d.backend_runs))
+        term[name] = dict(wall_s=wall, keyframes=d.counter, backend_runs=d.backend_runs, launches=queued,
+                          device_launches=d.terminate_stats.device_launches(queued),
+                          capture=capture_record(d.terminate_stats),
+                          expected_split_launches=4 * steps_x_chunks, finite=bool(np.isfinite(trajs[name]).all()))
+        term[name]["ok"] = bool(term[name]["finite"] and trajs[name].shape == (d.counter, 7)
+                                and split_launches_ok(term[name]["device_launches"],
+                                                      term[name]["expected_split_launches"]))
+        log(f"  terminate ({name}): {term[name]}")
+    same["trajectory"] = bool(np.array_equal(trajs["captured"], trajs["eager"]))
+    same["terminated_poses"] = torch.equal(droid.video.poses, eager.video.poses)
+    term = dict(term["captured"], eager=term["eager"])
+    term["ok"] = bool(term["ok"] and term["eager"]["ok"])
     res["terminate"] = term
-    log(f"  terminate: {term}")
+    res["capture_vs_eager"] = dict(same=same, ok=all(same.values()))
+    log(f"  captured vs capture=False: {same}; {res['fps']:.2f} vs {res['eager_fps']:.2f} frames/s; terminate "
+        f"{term['wall_s']:.3f} vs {term['eager']['wall_s']:.3f} s")
 
     # the map: export, then the same point cloud from CPU copies of the video
     v = droid.video
@@ -1551,30 +1706,44 @@ def host_engine_path(torch, np, kernels, Droid, DroidConfig, init_params, visual
                      and np.load(map_dir / "poses_c2w.npy").shape == (v.counter, 7))
     res["map"] = vis
     log(f"  map: {vis}")
-    res["ok"] = bool(res["tracking_ok"] and term["ok"] and vis["ok"])
+    res["ok"] = bool(res["tracking_ok"] and term["ok"] and vis["ok"] and res["capture_vs_eager"]["ok"])
     return res
 
 
-def host_cull_replay(torch, np, Droid, DroidConfig, render_sequence):
+def host_cull_replay(torch, np, Droid, DroidConfig, render_sequence, graph):
     """Phase 8b: the cull replay of tests/test_engine_equivalence.py:149-195
-    through the host engine on the card, the fused engine on the card and
-    the host engine on the CPU: the same keyframes after every frame, at
-    least one cull, poses within 5e-3 of the first run's."""
+    through the host engine on the card (its factor graph's steps captured,
+    every replay under sync debug mode "error"), the host engine on the
+    card with capture=False, the fused engine on the card and the host
+    engine on the CPU: the same keyframes after every frame, at least one
+    cull, poses within 5e-3 of the first run's; the two host engines on the
+    card bit for bit (keyframes, edges, poses, disparities)."""
     seq = render_sequence(np.random.default_rng(7), n_frames=CULL_FRAMES, image_size=CULL_CONFIG["image_size"],
                           t_sigma=0.25, r_sigma=0.02)
-    runs = {}
-    for name, device, fused in (("host_gpu", "cuda", False), ("fused_gpu", "cuda", True),
-                                ("host_cpu", "cpu", False)):
-        d = Droid(DroidConfig(**CULL_CONFIG), weights=str(FIXTURE_WEIGHTS), device=device, fused=fused)
+    runs, droids = {}, {}
+    for name, device, fused, capture in (("host_gpu", "cuda", False, True), ("host_gpu_eager", "cuda", False, False),
+                                         ("fused_gpu", "cuda", True, True), ("host_cpu", "cpu", False, True)):
+        d = droids[name] = Droid(DroidConfig(**CULL_CONFIG), weights=str(FIXTURE_WEIGHTS), device=device,
+                                 fused=fused, capture=capture)
         hist = []
         t0 = time.perf_counter()
-        for t in range(CULL_FRAMES):
-            d.track(t, seq["images"][t], intrinsics=seq["intrinsics"][t])
-            hist.append(d.tstamps.tolist())
-        runs[name] = dict(hist=hist, poses=d.poses.cpu().numpy(), wall_s=time.perf_counter() - t0)
+        with sync_checked_replays(torch, graph) if name == "host_gpu" else contextlib.nullcontext([]) as checked:
+            for t in range(CULL_FRAMES):
+                d.track(t, seq["images"][t], intrinsics=seq["intrinsics"][t])
+                hist.append(d.tstamps.tolist())
+        runs[name] = dict(hist=hist, poses=d.poses.cpu().numpy(), wall_s=time.perf_counter() - t0,
+                          sync_checked_replays=len(checked))
     ref = runs["host_gpu"]
+    host, eager = droids["host_gpu"], droids["host_gpu_eager"]
+    stats = host.frontend.graph.stats
     res = dict(keyframes=len(ref["hist"][-1]), tstamps=ref["hist"][-1],
-               walls_s={k: r["wall_s"] for k, r in runs.items()}, first_flip={}, pose_err={})
+               walls_s={k: r["wall_s"] for k, r in runs.items()}, first_flip={}, pose_err={},
+               capture=capture_record(stats), sync_checked_replays=ref["sync_checked_replays"],
+               capture_vs_eager=dict(hist=runs["host_gpu_eager"]["hist"] == ref["hist"],
+                                     poses=torch.equal(host.poses, eager.poses),
+                                     disps=torch.equal(host.disps, eager.disps),
+                                     edges=host.edges == eager.edges,
+                                     inactive_edges=host.inactive_edges == eager.inactive_edges))
     for name in ("fused_gpu", "host_cpu"):
         flip = next((t for t in range(CULL_FRAMES) if runs[name]["hist"][t] != ref["hist"][t]), None)
         res["first_flip"][name] = None if flip is None else dict(
@@ -1583,20 +1752,22 @@ def host_cull_replay(torch, np, Droid, DroidConfig, render_sequence):
             res["pose_err"][name] = float(np.abs(runs[name]["poses"] - ref["poses"]).max())
     res["same_keyframes"] = all(f is None for f in res["first_flip"].values())
     res["ok"] = bool(res["same_keyframes"] and res["keyframes"] < CULL_FRAMES
-                     and all(e < 5e-3 for e in res["pose_err"].values()))
+                     and all(e < 5e-3 for e in res["pose_err"].values())
+                     and all(res["capture_vs_eager"].values())
+                     and 0 < stats.replays == res["sync_checked_replays"])
     log(f"  cull replay (fixture weights, {CULL_FRAMES} frames, 96x128): {res}")
     return res
 
 
 def host_engine(torch, np, kernels, Droid, DroidConfig, init_params, visualization, evaluate,
-                render_sequence, seed: int, out_dir, fused_busy_share: float, row1_keyframes: int):
+                render_sequence, graph, seed: int, out_dir, fused_busy_share: float, row1_keyframes: int):
     """Phase 8: the host-driven engine. 8a at the bench configuration, 8b
     the cull replay, 8c phase 7's row 1 through the host engine."""
     log("phase 8a: host engine at the bench configuration")
     bench = host_engine_path(torch, np, kernels, Droid, DroidConfig, init_params, visualization, seed,
                              out_dir, fused_busy_share)
     log("phase 8b: cull replay, host engine (card, CPU) and fused engine (card)")
-    cull = host_cull_replay(torch, np, Droid, DroidConfig, render_sequence)
+    cull = host_cull_replay(torch, np, Droid, DroidConfig, render_sequence, graph)
     log("phase 8c: protocol row 1 through the host engine")
     row, droid, _ = protocol_row(torch, np, kernels, evaluate, DroidConfig, 1, fused=False)
     del droid
@@ -2528,6 +2699,11 @@ LOOP_KEYFRAMES = (150, 240)
 # keyframes, fitted scale
 QUARTER_KEYFRAMES, QUARTER_ATE, QUARTER_SCALE = (10, 55), 0.45, (0.25, 12.0)
 PROBE_JAX_EDGES = 3138  # the JAX package's record of the probe's edges (BENCH_r05.json), printed beside
+# what the long loop gave before its terminate's steps were captured (the
+# eager terminate, NVIDIA H100 80GB HBM3 at 700 W): 205 keyframes and an ATE
+# of 2.4291 after terminate; the captured one must keep the keyframes and
+# stay within LOOP_ATE_TOL of the ATE
+LOOP_REFERENCE, LOOP_ATE_TOL = (205, 2.4291), 1e-3
 # the sweep's rows: (seed, compute dtype, phase 7's row of the same seed and dtype)
 SWEEP_ROWS = ((7, "float32", 1), (11, "bfloat16", 6))
 
@@ -2539,19 +2715,49 @@ def split_pair_ok(launches, steps_chunks) -> bool:
     return want > 0 and all(launches.get(k, 0) == want for k in ("corr_slab", "corr_window"))
 
 
+def memory_peaks(torch, fn):
+    """fn() from an emptied allocator cache: its wall and the peaks of
+    allocated and of reserved memory (a captured step's pool is reserved,
+    not allocated, once its capture ends), in GB."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return dict(wall_s=time.perf_counter() - t0, peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+
+
+def loop_terminates(torch, droid, stream, out_dir):
+    """Phase 12b's terminates after the row's: terminate(stream) under the
+    profiler (device activity, table in DIR/profile_longloop_terminate.txt),
+    then with capture=False and with capture, each from an emptied cache:
+    walls and memory peaks side by side."""
+    prof = profile_terminate(torch, lambda: droid.terminate(iter(stream)), None, out_dir,
+                             "profile_longloop_terminate")
+    kept = droid.capture
+    try:
+        for capture in (False, True):
+            droid.capture = capture
+            prof["captured" if capture else "eager"] = memory_peaks(torch, lambda: droid.terminate(iter(stream)))
+    finally:
+        droid.capture = kept
+    return prof
+
+
 def long_loop(torch, np, port, cache: Path, out_dir=None):
     """Phase 12b: tools/longloop.py's run() at the reference scale, with the
-    launch counts reset before it and read after it; its terminate once
-    more under the profiler, device activity only (table in
-    DIR/profile_longloop_terminate.txt). Terminate's split-pair launches
-    are held to its two global-BA passes' steps and chunks (the filler
-    launches only corr_level)."""
+    launch counts reset before it and read after it; its terminate again
+    through loop_terminates (profiled, then eager and captured from an
+    emptied cache). Terminate's split-pair launches on the card are held
+    to its two global-BA passes' steps and chunks (the filler launches
+    only corr_level)."""
     torch.cuda.synchronize()
     port.kernels.reset_launches()
     t0 = time.perf_counter()
-    row = port.longloop.run(
-        LOOP_SEED, LOOP_FRAMES, *LOOP_SIZE, "bfloat16", cache_dir=cache,
-        profile=lambda terminate: profile_terminate(torch, terminate, None, out_dir, "profile_longloop_terminate"))
+    row = port.longloop.run(LOOP_SEED, LOOP_FRAMES, *LOOP_SIZE, "bfloat16", cache_dir=cache,
+                            profile=lambda droid, stream: loop_terminates(torch, droid, stream, out_dir))
     wall = time.perf_counter() - t0
     launches = port.kernels.launch_counts()
     prof = row["profile"]
@@ -2559,14 +2765,17 @@ def long_loop(torch, np, port, cache: Path, out_dir=None):
     prof["device_busy_share"] = prof["device_ms"] / (row["terminate_s"] * 1e3)
     kf = row["keyframes"]
     passes = [dict(p, edges_ok=0 < p["edges"] <= 16 * kf) for p in row["backend_runs"]]
-    track, term = row["launches"]["track"], row["launches"]["terminate"]
+    # the card's launches of terminate: its steps are captured, and a
+    # wrapper counts a captured launch once
+    track, term = row["launches"]["track"], row["terminate_device_launches"]
     res = dict(row=row, wall_s=wall, launches=launches, passes=passes,
                keyframes_ok=LOOP_KEYFRAMES[0] <= kf <= LOOP_KEYFRAMES[1],
+               reference_ok=kf == LOOP_REFERENCE[0] and abs(row["ate_rmse"] - LOOP_REFERENCE[1]) <= LOOP_ATE_TOL,
                poses_ok=row["poses_filled"] == LOOP_FRAMES and row["poses_finite"],
                split_pair_ok=split_pair_ok(term, [(p["steps"], p["chunks"]) for p in passes]),
                corr_level_ok=track.get("corr_level_bf16", 0) > 0 and track.get("corr_level_f32", 0) > 0)
-    res["ok"] = bool(res["keyframes_ok"] and res["poses_ok"] and res["corr_level_ok"] and res["split_pair_ok"]
-                     and all(p["edges_ok"] for p in passes))
+    res["ok"] = bool(res["keyframes_ok"] and res["reference_ok"] and res["poses_ok"] and res["corr_level_ok"]
+                     and res["split_pair_ok"] and all(p["edges_ok"] for p in passes))
     log(f"  long loop: {kf} keyframes of {row['frames']} frames (range {LOOP_KEYFRAMES}), tracking "
         f"{row['track_s']} s ({row['track_fps']} frames/s), warm_terminate {row['warm_terminate_s']} s, terminate "
         f"{row['terminate_s']} s; ATE {row['ate_rmse']} at scale {row['scale']} (keyframes before terminate: "
@@ -2576,10 +2785,15 @@ def long_loop(torch, np, port, cache: Path, out_dir=None):
         log(f"    pass of {p['steps']} steps: {p['edges']} edges (budget {16 * kf}), {p['chunks']} chunks")
     per_pass = " + ".join(f"{p['steps']} x {p['chunks']}" for p in passes)
     log(f"    terminate: corr_slab {term.get('corr_slab', 0)} corr_window {term.get('corr_window', 0)} "
-        f"(4 x ({per_pass}))")
+        f"(4 x ({per_pass})) on the card, {row['launches']['terminate'].get('corr_slab', 0)} queued; captured steps "
+        f"{row['terminate_capture']}; keyframes and ATE vs {LOOP_REFERENCE} (tolerance {LOOP_ATE_TOL}): "
+        f"{'ok' if res['reference_ok'] else 'FAILED'}")
     log(f"    launches: tracking {track}; terminate {row['launches']['terminate']}; peak by stage "
         f"{row['peak_allocated_gb_by_stage']} GB")
-    log(f"    terminate profile (busy share of the unprofiled terminate): {prof}")
+    log(f"    terminate profile (busy share of the unprofiled terminate): "
+        f"{ {k: v for k, v in prof.items() if k not in ('eager', 'captured')} }")
+    log(f"    terminate(stream) again from an emptied cache: capture=False {prof['eager']}; captured "
+        f"{prof['captured']}; peak reserved by stage {row['peak_reserved_gb_by_stage']} GB")
     return res
 
 
@@ -2634,12 +2848,15 @@ def backend_probe_path(torch, np, port):
     prof = row["profile"]
     prof["device_busy_share"] = prof["device_ms"] / (row["backend_step_s"] * 1e3)
     res = dict(row=row, host_edges=host_edges, wall_s=wall, launches=port.kernels.launch_counts())
-    res["ok"] = bool(row["backend_edges"] == host_edges
-                     and split_pair_ok(row["launches"], [(row["steps"], row["backend_chunks"])]))
+    # the timed steps are replays: nothing queued by a wrapper, all run on the card
+    res["ok"] = bool(row["backend_edges"] == host_edges and row["capture"] and row["replays"] == row["steps"]
+                     and split_pair_ok(row["device_launches"], [(row["steps"], row["backend_chunks"])]))
     log(f"  probe: {t_} keyframes, {row['backend_edges']} edges (host count {host_edges}; the JAX package's "
-        f"record {PROBE_JAX_EDGES}), {row['backend_chunks']} chunks per step, {row['backend_step_s']} s per step, "
-        f"timed steps' launches {row['launches']}, peak {row['peak_allocated_gb']} GB, wall {wall:.1f} s: "
-        f"{'ok' if res['ok'] else 'FAILED'}")
+        f"record {PROBE_JAX_EDGES}), {row['backend_chunks']} chunks per step, {row['backend_step_s']} s per step "
+        f"({row['replays']} replays), warm call {row['warm_s']} s of which capture {row['capture_s']} s "
+        f"({row['graphs']} graph, pool {row['pool_bytes'] / 1e6:.1f} MB), timed steps' launches queued "
+        f"{row['launches']}, on the card {row['device_launches']}, peak {row['peak_allocated_gb']} GB, wall "
+        f"{wall:.1f} s: {'ok' if res['ok'] else 'FAILED'}")
     log(f"    profiled step: {prof['device_ms']:.1f} ms of device time, busy share "
         f"{prof['device_busy_share']:.3f} of the unprofiled step; {prof['top_kernels_ms']}")
     return res
@@ -2811,7 +3028,7 @@ def main(argv=None) -> int:
     capture_res["wall_s"] = time.perf_counter() - t0
 
     log("phase 6: terminate path, Droid.terminate() at the bench configuration")
-    term_res, term_ref = terminate_path(torch, np, kernels, droid, args.out)
+    term_res, term_ref = terminate_path(torch, np, kernels, graph, droid, args.seed, args.out)
     del droid
 
     log("phase 7: synthetic protocol with the shipped weights")
@@ -2822,7 +3039,7 @@ def main(argv=None) -> int:
     log("phase 8: host-driven engine, Droid(fused=False)")
     t0 = time.perf_counter()
     host = host_engine(torch, np, kernels, Droid, DroidConfig, init_params, visualization, evaluate,
-                       render_sequence, args.seed, args.out, main_res["profile"]["device_busy_share"],
+                       render_sequence, graph, args.seed, args.out, main_res["profile"]["device_busy_share"],
                        proto["rows"][0]["keyframes"])
     host["wall_s"] = time.perf_counter() - t0
 
@@ -2900,7 +3117,7 @@ def main(argv=None) -> int:
             source="droid_slam_tpu_torch/csrc/corr_split.cu",
             replaces=f"droid_slam_tpu/ops/pallas_corr.py:{line}",
             launches=term_res["runs"][0]["launches"][name],
-            replayed_launches=0,
+            replayed_launches=term_res["runs"][0]["replayed_launches"].get(name, 0),
             max_abs_err=max(c["max_abs_err"][name] for c in split_cases),
             ms=sum(c["ms"][name] for c in split_bf16),
             plain_ms=sum(c["plain_ms"][name] for c in split_bf16),
@@ -3029,13 +3246,16 @@ def main(argv=None) -> int:
     failed += [f"phase 5b {name}: {case['same']}" for name, case in capture_res["cases"].items() if not case["ok"]]
     if not term_res["ok"]:
         failed.append("terminate path")
+    failed += [f"phase 6b {name}: {case['same']}" for name, case in term_res["capture_vs_eager"]["cases"].items()
+               if not case["ok"]]
     failed += [f"synthetic row {r['row']} {r['mode']} seed {r['seed']} {r['dtype']}"
                for r in proto["rows"] if not r["ok"]]
     if not proto["cull"]["ok"]:
         failed.append(f"synthetic row 9 cull replay: {proto['cull']}")
     failed += [f"host engine {part}" for part, ok in (
         ("8a tracking", host["bench"]["tracking_ok"]), ("8a terminate", host["bench"]["terminate"]["ok"]),
-        ("8a map", host["bench"]["map"]["ok"]), ("8b cull replay", host["cull"]["ok"]),
+        ("8a map", host["bench"]["map"]["ok"]), ("8a captured vs eager", host["bench"]["capture_vs_eager"]["ok"]),
+        ("8b cull replay", host["cull"]["ok"]),
         ("8c row 1", host["row1"]["ok"])) if not ok]
     failed += [f"corr_backward {c['kind']} {c['H2']}x{c['W2']} L{c['level']}" for c in train["backward_cases"]
                if not c["ok"]]
@@ -3084,10 +3304,16 @@ def main(argv=None) -> int:
         + f"; graph_cond {capture_res['graph_cond']['ms']:.5f} ms per IF node; a host frame's upload waits for "
         f"the card: {capture_res['host_upload_syncs']}")
     walls = ", ".join(f"{r['wall_s']:.3f}" for r in term_res["runs"])
-    first = term_res["runs"][0]["launches"]
-    log(f"terminate path: {term_res['keyframes']} keyframes, wall {walls} s, "
-        f"corr_slab/corr_window launches {first['corr_slab']}/{first['corr_window']}, "
-        f"repeats: {term_res['repeat']}")
+    first = term_res["runs"][0]
+    versus = term_res["capture_vs_eager"]
+    log(f"terminate path (captured steps): {term_res['keyframes']} keyframes, wall {walls} s, "
+        f"corr_slab/corr_window launches {first['launches']['corr_slab']}/{first['launches']['corr_window']} "
+        f"queued, {first['device_launches']['corr_slab']}/{first['device_launches']['corr_window']} on the card, "
+        f"captured steps {first['capture']}, repeats: {term_res['repeat']}; device "
+        f"{term_res['profile']['device_ms']:.1f} ms; 6b: "
+        + ", ".join(f"{name} walls {c['walls_s']}, {'bitwise' if c['ok'] else 'DIFFERS'}"
+                    for name, c in versus["cases"].items())
+        + f"; device ms {versus['device_ms']}, busy share {versus['busy_share']}")
     log(f"synthetic protocol: {len(proto['rows'])} rows and the cull replay passed in "
         f"{proto['wall_s']:.1f} s; ATE " + ", ".join(f"{r['mode']} {r['seed']} {r['dtype']} {r['ate']:.4f}"
                                                    for r in proto["rows"]))
@@ -3100,13 +3326,16 @@ def main(argv=None) -> int:
         f"{ {k: n for k, n in main_res['launches'].items() if k.startswith('corr_level_')} }, on the card "
         f"{ {k: n for k, n in main_res['device_launches'].items() if k.startswith('corr_level_')} }")
     hb, hterm, hrow = host["bench"], host["bench"]["terminate"], host["row1"]
-    log(f"host engine (phase 8, {host['wall_s']:.1f} s): {hb['fps']:.2f} frames/s (fused {main_res['fps']:.2f}), "
+    log(f"host engine (phase 8, {host['wall_s']:.1f} s): {hb['fps']:.2f} frames/s captured, "
+        f"{hb['eager_fps']:.2f} with capture=False (bit for bit: {hb['capture_vs_eager']['ok']}; captured steps "
+        f"{hb['capture']}), terminate eager {hterm['eager']['wall_s']:.3f} s (fused {main_res['fps']:.2f}), "
         f"device busy {hb['profile']['device_busy_share']:.3f} (fused "
         f"{main_res['profile']['device_busy_share']:.3f}), corr_level_f32 launches "
         f"{hb['dtype_launches'].get('corr_level_f32')}; terminate {hterm['wall_s']:.3f} s, corr_slab/corr_window "
         f"{hterm['launches']['corr_slab']}/{hterm['launches']['corr_window']}; map {hb['map']['points']} points, "
         f"masks agree {hb['map']['mask_agreement']:.5f}; cull replay {host['cull']['keyframes']} keyframes "
-        f"on all three runs; row 1 ATE {hrow['ate']:.4f}, keyframes {hrow['keyframes']} "
+        f"on all four runs (captured and eager bit for bit: {all(host['cull']['capture_vs_eager'].values())}); "
+        f"row 1 ATE {hrow['ate']:.4f}, keyframes {hrow['keyframes']} "
         f"(fused {row1['keyframes']})")
     td, tl = train["defaults"], train["learns"]
     log(f"training (phase 9, {train['wall_s']:.1f} s): corr_backward {bwd_row['ms']:.4f} ms per "
@@ -3150,8 +3379,10 @@ def main(argv=None) -> int:
         f"of the unprofiled terminate), ATE {ll['row']['ate_rmse']} "
         f"scale {ll['row']['scale']}, peak {ll['row']['peak_allocated_gb']} GB, passes "
         + ", ".join(f"{p['edges']} edges/{p['chunks']} chunks" for p in ll["passes"])
-        + f"; quarter loop {qt['keyframes']} keyframes, ATE {qt['ate']:.4f}; probe {pr['row']['backend_edges']} "
-        f"edges, {pr['row']['backend_step_s']} s per step, {pr['row']['backend_chunks']} chunks; sweep rows = "
+        + f", terminate's captured steps {ll['row']['terminate_capture']}; quarter loop {qt['keyframes']} keyframes, "
+        f"ATE {qt['ate']:.4f}; probe {pr['row']['backend_edges']} edges, {pr['row']['backend_step_s']} s per step "
+        f"(replays; capture {pr['row']['capture_s']} s, pool {pr['row']['pool_bytes'] / 1e6:.1f} MB), "
+        f"{pr['row']['backend_chunks']} chunks; sweep rows = "
         f"phase 7's rows {[r['phase7_row'] for r in scale['sweep']['rows']]} bit for bit")
     log(f"whole run: {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": kernel_rows}))

@@ -8,10 +8,12 @@ iterations:
 * :func:`ba_iteration_dense_window` — the fused tracking step's: the
   pose-depth coupling scattered into a dense window. ``t0``, ``t1`` and
   ``kf0`` are 0-dim tensors, so the iteration never reads to the host.
-* :func:`ba_iteration` / :func:`ba_solve` — the global backend's and the
-  trajectory filler's: a block-sparse Schur complement over a pair
-  schedule that the host builds once per graph (:class:`SchurPairs`);
-  ``t0`` and ``t1`` are host integers.
+* :func:`ba_iteration` / :func:`ba_solve` — the global backend's, the
+  host engine's and the trajectory filler's: a block-sparse Schur
+  complement over a pair schedule that the host builds once per graph
+  edit (:class:`SchurPairs`, padded to a power of two as in the JAX
+  package); ``t0`` and ``t1`` are host integers or 0-dim tensors on the
+  device, so that a step captured into a CUDA graph reads no host value.
 
 The damped solve is an f32 Cholesky plus one refinement step, and a failed
 factorisation yields a zero update (droid.cpp:568-578). Poses [t0, t1) are
@@ -24,7 +26,7 @@ package vmaps; :func:`cholesky_solve` carries the analytic backward.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -518,18 +520,24 @@ class SchurPairs(NamedTuple):
     Blocks are the rows of E = concat(Ei_window [window], Ej_edges [N]):
     block b couples the inverse depths of keyframe k(b) with pose p(b).
     S[p(a), p(b)] += E_a · diag(Q_k) · E_bᵀ for every ordered pair (a, b)
-    with k(a) == k(b), both poses inside [t0, t1). The JAX package pads the
-    list to a power of two for compile reuse; the port keeps only the pairs.
+    with k(a) == k(b), both poses inside [t0, t1). Padded pairs (block 0
+    with itself, ``pair_valid`` false) go to dump rows of the scatter
+    (:func:`_scatter_pairs`), so the real pairs' sums keep their order and
+    their bits.
     """
 
     pair_a: Tensor  # [NP] int64 block index
     pair_b: Tensor  # [NP] int64 block index
+    pair_valid: Tensor  # [NP] bool
 
     @staticmethod
     def build(ii: np.ndarray, jj: np.ndarray, edge_valid: np.ndarray, t0: int, t1: int,
-              window: int, device=None) -> "SchurPairs":
+              window: int, device=None, pad_floor: Optional[int] = None) -> "SchurPairs":
         """ii/jj/edge_valid: [N] host edge lists. Window rows are block ids
-        [0, window); edge e is block window + e."""
+        [0, window); edge e is block window + e. With ``pad_floor`` the list
+        is padded to the next power of two that is at least ``pad_floor``
+        (``droid_slam_tpu/ops/ba.py:479-495``), so that a step captured for
+        one length serves every list up to it; without, it is not padded."""
         if t1 - t0 > window:
             raise ValueError(f"BA window span {t1 - t0} > static window pad {window}")
         blk_k = np.concatenate([np.arange(t0, t0 + window), ii])
@@ -539,7 +547,24 @@ class SchurPairs(NamedTuple):
             & (blk_p >= t0) & (blk_p < t1)
         )
         pa, pb = pair_schedule(blk_k, blk_ok)
-        return SchurPairs(torch.as_tensor(pa, device=device), torch.as_tensor(pb, device=device))
+        n = len(pa)
+        total = n if pad_floor is None else pair_bucket(n, pad_floor)
+        pair_a = np.zeros(total, np.int64)
+        pair_b = np.zeros(total, np.int64)
+        pair_a[:n], pair_b[:n] = pa, pb
+        return SchurPairs(torch.as_tensor(pair_a, device=device), torch.as_tensor(pair_b, device=device),
+                          torch.as_tensor(np.arange(total) < n, device=device))
+
+    def copy_(self, other: "SchurPairs") -> None:
+        """Write ``other``, a list of the same length, into these tensors."""
+        for mine, theirs in zip(self, other):
+            mine.copy_(theirs)
+
+
+def pair_bucket(n: int, floor: int) -> int:
+    """The padded length of a list of ``n`` pairs: the next power of two
+    that is at least ``floor``."""
+    return max(int(2 ** np.ceil(np.log2(max(n, floor, 1)))), floor)
 
 
 def _pair_products(E_blocks: Tensor, Qk: Tensor, pairs: SchurPairs, chunk: int = 2048) -> Tensor:
@@ -557,7 +582,8 @@ def _pair_products(E_blocks: Tensor, Qk: Tensor, pairs: SchurPairs, chunk: int =
 
 
 class BAProblem(NamedTuple):
-    """Inputs of :func:`ba_iteration` besides the state."""
+    """Inputs of :func:`ba_iteration` besides the state. ``t0`` and ``t1``
+    are host ints or 0-dim int64 tensors on the state's device."""
 
     target: Tensor  # [N, H, W, 2]
     weight: Tensor  # [N, H, W, 2]
@@ -565,8 +591,8 @@ class BAProblem(NamedTuple):
     ii: Tensor  # [N] int64, in range
     jj: Tensor  # [N]
     edge_valid: Tensor  # [N] bool
-    t0: int  # first optimised pose
-    t1: int  # one past the last optimised pose
+    t0: Union[int, Tensor]  # first optimised pose
+    t1: Union[int, Tensor]  # one past the last optimised pose
     pairs: SchurPairs
 
 
@@ -576,10 +602,34 @@ def _damp(A: Tensor, lm: float, ep: float, live6: Tensor) -> Tensor:
     return A + (ep + lm * A) * eye * live6[:, None]
 
 
-def _window_rows(rows: Tensor, t0: int, total: int) -> Tensor:
-    """Zeros [total, ...] with ``rows`` [K, ...] at t0 (clamped so the block
-    fits, as a dynamic update slice does)."""
+def _scatter_pairs(S_pairs: Tensor, pa: Tensor, pb: Tensor, valid: Tensor, P: int) -> Tensor:
+    """Sum the pair products [NP, 6, 6] into the [P, P, 6, 6] pose grid at
+    (pa, pb), as :func:`_scatter_mat` does. The padded pairs (``valid``
+    false) go to dump rows past the grid, one each: the real pairs' sums
+    keep their order and their bits, and no dump row holds a run as long
+    as the padding (the card's sorted scatter adds a row's run up one
+    entry after another)."""
+    NP = S_pairs.shape[0]
+    ok = valid & (pa >= 0) & (pb >= 0) & (pa < P) & (pb < P)
+    dump = P * P + torch.arange(NP, device=pa.device)
+    flat = segment_sum(torch.where(ok, pa * P + pb, dump), S_pairs.float(), P * P + NP)[: P * P]
+    return flat.reshape((P, P) + S_pairs.shape[1:])
+
+
+def _window_rows(rows: Tensor, t0, total: int) -> Tensor:
+    """Zeros [total, ...] with ``rows`` [K, ...] at t0, an int or a 0-dim
+    tensor (clamped so the block fits, as a dynamic update slice does)."""
     return _place_rows(rows, torch.as_tensor(t0, device=rows.device), total)
+
+
+def _read_rows(rows: Tensor, start, K: int) -> Tensor:
+    """rows[s : s + K] with s = start clamped to [0, len(rows)], and zeros
+    past the end: a clamped gather, so that ``start`` may be a 0-dim
+    tensor."""
+    F = rows.shape[0]
+    at = torch.as_tensor(start, device=rows.device).clamp(0, F) + torch.arange(K, device=rows.device)
+    inside = (at < F).reshape((K,) + (1,) * (rows.dim() - 1))
+    return torch.where(inside, rows[at.clamp(max=F - 1)], torch.zeros((), dtype=rows.dtype, device=rows.device))
 
 
 def ba_iteration(
@@ -638,8 +688,7 @@ def ba_iteration(
     # ---- block-sparse Schur complement ----
     # E block rows: the window's accumulated Ei rows, then per-edge Ej rows
     Ei_acc = _scatter_vec(blocks.Ei, prob.ii, F)  # [F, 6, HW]
-    s0 = min(max(t0, 0), F)  # a window past the buffer reads zero rows
-    Ei_win = torch.cat([Ei_acc, Ei_acc.new_zeros((P, 6, hw))])[s0 : s0 + P]
+    Ei_win = _read_rows(Ei_acc, t0, P)  # a window past the buffer reads zero rows
     E_blocks = torch.cat([Ei_win, blocks.Ej]).to(sd)  # [P+N, 6, HW]
 
     win = t0 + torch.arange(P, device=dev)
@@ -654,7 +703,8 @@ def ba_iteration(
     Qk = (Q[k_safe] * okf).to(sd)
 
     S_pairs = _pair_products(E_blocks, Qk, prob.pairs)  # f32 accumulation
-    S = _scatter_mat(S_pairs, blk_p[prob.pairs.pair_a] - t0, blk_p[prob.pairs.pair_b] - t0, P, P)
+    S = _scatter_pairs(S_pairs, blk_p[prob.pairs.pair_a] - t0, blk_p[prob.pairs.pair_b] - t0,
+                       prob.pairs.pair_valid, P)
 
     # v −= E Q w per block, scattered to the block's pose row
     qw = ((Q * w)[k_safe] * okf).to(sd)

@@ -121,7 +121,8 @@ class ShardedBAPlan(NamedTuple):
             return torch.as_tensor(x, dtype=torch.long, device=device)
 
         return PlacedPlan(put(self.ii), put(self.jj), put(self.perm),
-                          ba_ops.SchurPairs(put(self.pair_a), put(self.pair_b)))
+                          ba_ops.SchurPairs(put(self.pair_a), put(self.pair_b),
+                                            torch.ones(len(self.pair_a), dtype=torch.bool, device=device)))
 
 
 

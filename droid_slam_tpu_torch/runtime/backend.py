@@ -13,7 +13,7 @@ from typing import Tuple
 
 import torch
 
-from .factor_graph import FactorGraph
+from .factor_graph import CaptureStats, FactorGraph
 
 
 def _chunk_ceil(n: int, chunk: int = 256, floor: int = 64) -> int:
@@ -31,13 +31,17 @@ class DroidBackend:
     counterpart of the JAX package's mesh with a ``"ba"`` axis: every
     global-BA solve then runs edge-sharded over its ranks
     (:mod:`..parallel.sharded_ba`), each rank running this backend on the
-    same state."""
+    same state, eagerly. ``capture`` (CUDA, without ``mesh``) replays each
+    pass's steps after its first as one CUDA graph; each pass's graphs go
+    with its factor graph, and ``stats`` sums what they cost and ran."""
 
-    def __init__(self, update_op, video, config, mesh=None):
+    def __init__(self, update_op, video, config, mesh=None, capture: bool = False):
         self.update_op = update_op
         self.video = video
         self.config = config
         self.mesh = mesh
+        self.capture = capture
+        self.stats = CaptureStats()
 
     def __call__(self, steps: int = 12) -> Tuple[int, int]:
         """Run ``steps`` global-BA iterations; returns (edges, chunks): the
@@ -61,6 +65,8 @@ class DroidBackend:
             window_pad=cfg.window_pad,
             upsample=cfg.upsample,
             net_dtype=getattr(torch, cfg.compute_dtype),
+            schur_pair_floor=cfg.schur_pair_floor,
+            capture=self.capture,
         )
         graph.add_proximity_factors(
             rad=cfg.backend_radius,
@@ -71,4 +77,5 @@ class DroidBackend:
         n_edges = graph.num_active
         n_chunks = graph.update_lowmem(steps=steps, mesh=self.mesh)
         graph.clear_edges()
+        self.stats.merge(graph.stats)
         return n_edges, n_chunks

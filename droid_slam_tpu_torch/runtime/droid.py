@@ -22,6 +22,14 @@ math and the state layout:
   over a live :class:`.video.VideoState`, about three blocking reads per
   frame; ``terminate`` runs on that video, once.
 
+``capture`` also covers every factor graph the Droid makes: the host
+engine's frontend, both global-BA passes of ``terminate`` and of
+``warm_terminate``, and the trajectory filler. On a CUDA device each of
+their operator steps whose static key has been seen is one CUDA graph
+replay (:meth:`.factor_graph.FactorGraph.update`, ``update_lowmem``);
+``capture=False`` runs them eagerly. With ``ba_mesh`` the global BA's
+steps run eagerly either way.
+
 ``visualize=True`` starts a :class:`..utils.visualization.VisualizerThread`
 (an Open3D window where open3d imports, headless otherwise). ``ba_mesh``, a
 ``torch.distributed`` process group, runs terminate's global BA
@@ -45,6 +53,7 @@ from ..ops import lie
 from . import fused as fused_step
 from .backend import DroidBackend
 from .config import DroidConfig
+from .factor_graph import CaptureStats
 from .frontend import DroidFrontend
 from .graph import CapturedStep
 from .motion_filter import MotionFilter
@@ -78,8 +87,9 @@ class Droid:
     (:func:`..models.weights.load_weights`: the JAX package's ``.msgpack``
     or a reference ``.pth``); with neither, random ``init_params(0)``.
     ``fused`` picks the tracking engine (module docstring); ``capture``
-    (fused engine, CUDA only) replays the step after initialisation as one
-    CUDA graph, ``capture=False`` runs it eagerly. The host engine
+    (CUDA only) replays the fused step after initialisation and the factor
+    graphs' steps as CUDA graphs, ``capture=False`` runs them eagerly. The
+    host engine
     keeps the JAX package's dtypes: f32 encoders, probe, video features and
     per-edge hidden state, with only the update operator in
     ``config.compute_dtype``. ``ba_mesh`` (optional) is a
@@ -113,7 +123,7 @@ class Droid:
             self.net.update if cdt == torch.float32 else copy.deepcopy(self.net.update).to(cdt)
         )
         self.fused = fused
-        self.capture = bool(capture) and fused and self.device.type == "cuda"
+        self.capture = bool(capture) and self.device.type == "cuda"
         # host copy of the state's is_init, read after each frame until init ran
         self._initialized = False
         # the captured steady-state step, made on the first frame after init
@@ -125,10 +135,12 @@ class Droid:
         else:
             self.video = VideoState(config, self.device)
             self.filterx = MotionFilter(self.net, self.video, thresh=config.filter_thresh)
-            self.frontend = DroidFrontend(self._update_op, self.video, config)
+            self.frontend = DroidFrontend(self._update_op, self.video, config, capture=self.capture)
         # (edges, update-operator chunks per step) of terminate's two
-        # global-BA passes
+        # global-BA passes, and what the last terminate's captured steps
+        # cost and ran (its passes and its fill)
         self.backend_runs: List[Tuple[int, int]] = []
+        self.terminate_stats = CaptureStats()
 
         self.visualizer = None
         if visualize:
@@ -268,18 +280,18 @@ class Droid:
         v.counter = t
         rng = np.random.default_rng(0)
         tw = np.cumsum(0.01 * rng.standard_normal((cfg.buffer, 6)), 0).astype(np.float32)
-        v.poses = lie.retr(v.poses, torch.from_numpy(tw).to(self.device))
+        v.poses.copy_(lie.retr(v.poses, torch.from_numpy(tw).to(self.device)))
         h, w = cfg.feat_size
         v.intrinsics[:] = torch.tensor([1.2 * w, 1.2 * w, w / 2, h / 2], device=self.device)
-        DroidBackend(self._update_op, v, cfg, mesh=self.ba_mesh)(2)
+        DroidBackend(self._update_op, v, cfg, mesh=self.ba_mesh, capture=self.capture)(2)
         batch = min(16, cfg.buffer - t)
         if batch >= 1:
-            v.tstamp = torch.arange(cfg.buffer, dtype=torch.float32, device=self.device)
+            v.tstamp.copy_(torch.arange(cfg.buffer, dtype=torch.float32, device=self.device))
             H, W = cfg.image_size
             intr_full = np.asarray([1.2 * W, 1.2 * W, W / 2, H / 2], np.float32)
             dummy = np.zeros((H, W, 3), np.uint8)
             stream = [(k + 0.5, dummy, intr_full) for k in range(batch)]
-            PoseTrajectoryFiller(self.net, self._update_op, v, cfg)(iter(stream))
+            PoseTrajectoryFiller(self.net, self._update_op, v, cfg, capture=self.capture)(iter(stream))
         self.sync()
 
     @torch.no_grad()
@@ -302,11 +314,15 @@ class Droid:
         else:
             del self.frontend
             v = self.video
-        backend = DroidBackend(self._update_op, v, self.config, mesh=self.ba_mesh)
+        backend = DroidBackend(self._update_op, v, self.config, mesh=self.ba_mesh, capture=self.capture)
         self.backend_runs = [backend(7), backend(12)]
+        self.terminate_stats = backend.stats
         # one refresh of the optimised map for the visualiser's consumers
         if self.visualizer is not None:
             self.visualizer.final_update()
         if stream is not None:
-            return PoseTrajectoryFiller(self.net, self._update_op, v, self.config)(stream)
+            filler = PoseTrajectoryFiller(self.net, self._update_op, v, self.config, capture=self.capture)
+            traj = filler(stream)
+            self.terminate_stats.merge(filler.stats)
+            return traj
         return lie.inv(v.poses[: v.counter]).cpu().numpy()

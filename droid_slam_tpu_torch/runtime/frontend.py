@@ -19,9 +19,11 @@ from .fused import _edge_slots
 
 class DroidFrontend:
     """``update_op`` is the update operator in the compute dtype; the graph's
-    per-edge hidden state stays f32."""
+    per-edge hidden state stays f32. ``capture`` (CUDA) replays each
+    operator iteration whose key the graph has seen as one CUDA graph
+    (:meth:`.factor_graph.FactorGraph.update`)."""
 
-    def __init__(self, update_op, video, config):
+    def __init__(self, update_op, video, config, capture: bool = False):
         self.video = video
         self.config = config
         # the edge store holds the initialisation's neighbourhood, which
@@ -35,6 +37,8 @@ class DroidFrontend:
             inactive_pad=config.inactive_pad,
             window_pad=config.window_pad,
             upsample=config.upsample,
+            schur_pair_floor=config.schur_pair_floor,
+            capture=capture,
         )
 
         self.t1 = 0  # keyframes the frontend has tracked

@@ -5,7 +5,11 @@ Counterpart of the JAX package's ``runtime/trajectory_filler.py``: per
 batch of 16 frames, interpolate SE(3) poses in log space between the
 bracketing keyframes, extract matching features, append the frames to the
 video for the moment, attach each to its two bracketing keyframes, and run
-6 motion-only operator iterations (trajectory_filler.py:50-72).
+6 motion-only operator iterations (trajectory_filler.py:50-72). One
+factor graph serves every batch of a call, its edges cleared between
+batches, so that with ``capture`` the batches after the first replay
+their iterations as CUDA graphs (the JAX package reuses one compiled
+step the same way).
 """
 
 from __future__ import annotations
@@ -16,22 +20,26 @@ import numpy as np
 import torch
 
 from ..ops import lie
-from .factor_graph import FactorGraph
+from .factor_graph import CaptureStats, FactorGraph
 from .video import _set_range
 
 
 class PoseTrajectoryFiller:
     """``net`` is the :class:`..models.droid_net.DroidNet` (its f32 fnet
     encodes the frames); ``update_op`` its update operator in the compute
-    dtype."""
+    dtype. ``capture`` (CUDA) replays the iterations whose key has been
+    seen as CUDA graphs; ``stats`` sums what the captures cost and ran."""
 
-    def __init__(self, net, update_op, video, config):
+    def __init__(self, net, update_op, video, config, capture: bool = False):
         self.net = net
         self.update_op = update_op
         self.video = video
         self.config = config
+        self.capture = capture
+        self.stats = CaptureStats()
 
-    def _fill(self, tstamps: List[float], images: List, intrinsics: List, ts: np.ndarray) -> torch.Tensor:
+    def _fill(self, graph: FactorGraph, tstamps: List[float], images: List, intrinsics: List,
+              ts: np.ndarray) -> torch.Tensor:
         v = self.video
         dev = v.poses.device
         N = v.counter
@@ -70,14 +78,10 @@ class PoseTrajectoryFiller:
         _set_range(v.fmaps[:, 0], N, fmaps)
         v.counter = N + M
 
-        graph = FactorGraph(
-            v,
-            self.update_op,
-            max_factors=max(2 * M, 32),
-            edge_pad=max(2 * M, 32),  # exactly 2M edges are added
-            inactive_pad=8,
-            window_pad=max(32, M),
-        )
+        # the previous batch's edges go, and its damping (which a
+        # motion-only step does not read): the graph starts as a new one
+        graph.clear_edges()
+        graph.damping.fill_(1e-6)
         graph.add_factors(t0, np.arange(N, N + M))
         graph.add_factors(t1, np.arange(N, N + M))
         for _ in range(6):
@@ -103,12 +107,22 @@ class PoseTrajectoryFiller:
                 f"trajectory filler needs >= 1 free keyframe slot but the buffer is full "
                 f"({v.counter}); increase DroidConfig.buffer"
             )
+        graph = FactorGraph(
+            v,
+            self.update_op,
+            max_factors=max(2 * batch, 32),
+            edge_pad=max(2 * batch, 32),  # at most 2 edges per frame of a batch
+            inactive_pad=8,
+            window_pad=max(32, batch),
+            schur_pair_floor=self.config.schur_pair_floor,
+            capture=self.capture,
+        )
         for tstamp, image, intrinsic in image_stream:
             tstamps.append(tstamp)
             images.append(image)
             intrinsics.append(intrinsic)
             if len(tstamps) == batch:
-                pose_list.append(self._fill(tstamps, images, intrinsics, ts))
+                pose_list.append(self._fill(graph, tstamps, images, intrinsics, ts))
                 tstamps, images, intrinsics = [], [], []
         if tstamps:
             # the trailing batch is padded to the full batch by repeating its
@@ -119,6 +133,7 @@ class PoseTrajectoryFiller:
                 tstamps.append(tstamps[-1])
                 images.append(images[-1])
                 intrinsics.append(intrinsics[-1])
-            pose_list.append(self._fill(tstamps, images, intrinsics, ts)[:n_tail])
+            pose_list.append(self._fill(graph, tstamps, images, intrinsics, ts)[:n_tail])
+        self.stats.merge(graph.stats)
 
         return lie.inv(torch.cat(pose_list)).cpu().numpy()

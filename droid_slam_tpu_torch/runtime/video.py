@@ -103,7 +103,8 @@ class VideoState:
     """The keyframe buffers of one device (depth_video.py:24-45 layout).
 
     Buffers are plain tensors that the engines, the backend and the
-    trajectory filler replace or update in place: tstamp [B], images
+    trajectory filler update in place (a factor graph's captured steps
+    replay against their storage): tstamp [B], images
     [B, H, W, 3] uint8, poses [B, 7] world→camera (t, q_xyzw), disps /
     disps_sens [B, h, w], intrinsics [B, 4] at 1/8 resolution, fmaps
     [B, rig, h, w, 128] (rig 2 in stereo: left, right), nets / inps
@@ -213,5 +214,8 @@ class VideoState:
         return self.distance(ii.reshape(-1), jj.reshape(-1), beta=beta).reshape(t, t)
 
     def normalize(self) -> None:
-        self.poses, self.disps = _normalize(self.poses, self.disps, self.counter)
+        """Fix the monocular gauge, in the buffers' own storage."""
+        poses, disps = _normalize(self.poses, self.disps, self.counter)
+        self.poses.copy_(poses)
+        self.disps.copy_(disps)
         self.dirty[: self.counter] = True

@@ -11,14 +11,18 @@ JAX probe's order, so the edge list is the JAX probe's; the graph is sized
 as the JAX probe sizes it (a power-of-two edge store), not as the port's
 backend does.
 
-  python -m droid_slam_tpu_torch.tools.backend_probe [--t 200] [--image_size 240 320] [--device cpu]
+  python -m droid_slam_tpu_torch.tools.backend_probe [--t 200] [--image_size 240 320] [--device cpu] \\
+      [--no-capture]
 
-It runs on CUDA unless ``device`` names another device.
+It runs on CUDA unless ``device`` names another device. There the warm
+call's step is captured into a CUDA graph, and the timed steps are its
+replays; ``--no-capture`` runs every step eagerly (the CPU always does).
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import time
 from typing import Dict, NamedTuple
@@ -82,11 +86,12 @@ def unique_edges(arrays: ProbeArrays) -> int:
 
 
 def build_probe(t: int = 200, image_size=(240, 320), device=None, params=None,
-                compute_dtype: str = "bfloat16"):
+                compute_dtype: str = "bfloat16", capture: bool = True):
     """The probe's video and factor graph on ``device``: returns (graph,
     video). ``params`` is a :class:`..models.droid_net.DroidNet` state dict
     (default: ``init_params(1)``); the update operator runs in
-    ``compute_dtype``."""
+    ``compute_dtype``. ``capture`` as :class:`..runtime.factor_graph.FactorGraph`
+    takes it."""
     import torch
 
     from ..models.droid_net import DroidNet, init_params
@@ -117,7 +122,7 @@ def build_probe(t: int = 200, image_size=(240, 320), device=None, params=None,
 
     size = _pow2ceil(16 * t)
     graph = FactorGraph(v, update_op, max_factors=size, edge_pad=size, inactive_pad=16,
-                        window_pad=cfg.window_pad)
+                        window_pad=cfg.window_pad, capture=capture)
     graph.add_factors(x.ii, x.jj)
     return graph, v
 
@@ -132,14 +137,21 @@ def _sync(device) -> None:
 TIMED_STEPS = 2
 
 
-def backend_scale_probe(t: int = 200, image_size=(240, 320), device=None, params=None, profile=None) -> Dict:
+def backend_scale_probe(t: int = 200, image_size=(240, 320), device=None, params=None, profile=None,
+                        capture: bool = True) -> Dict:
     """One warm ``update_lowmem(steps=1)``, then TIMED_STEPS timed steps;
     returns the seconds per step, the keyframes and edges, the
     update-operator chunks per step, the kernel launches of the timed steps
-    (the update operator in bf16, as the JAX probe's default config) and,
-    on a CUDA device, the peak of allocated memory over the whole
-    probe. ``profile``, when given, is called last with a function that
-    runs one more step, and what it returns is the row's ``"profile"``."""
+    as the wrappers count them (``launches``) and as the card ran them
+    (``device_launches``: a captured launch runs on every replay), the
+    update operator in bf16 as in the JAX probe's default config, the
+    warm call's seconds and, of them, its capture's (``capture_s``), the
+    graphs captured, their pool bytes and the replays, and on a CUDA
+    device the peak of allocated memory over the whole probe. With
+    ``capture`` (CUDA) the warm call runs its step eagerly and captures it,
+    so that every timed step is one replay. ``profile``, when given, is
+    called last with a function that runs one more step, and what it
+    returns is the row's ``"profile"``."""
     import torch
 
     from ..ops import kernels
@@ -149,16 +161,22 @@ def backend_scale_probe(t: int = 200, image_size=(240, 320), device=None, params
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     with torch.no_grad():
-        graph, v = build_probe(t, image_size, dev, params)
+        graph, v = build_probe(t, image_size, dev, params, capture=capture)
         n_edges = graph.num_active
-        graph.update_lowmem(steps=1)  # cuDNN's first calls, the kernels' build
+        t0 = time.perf_counter()
+        graph.update_lowmem(steps=1)  # cuDNN's first calls, the kernels' build, the capture
         _sync(dev)
+        warm_s = time.perf_counter() - t0
+        stats = copy.deepcopy(graph.stats)  # the warm call's
         before = kernels.launch_counts()
         t0 = time.perf_counter()
         chunks = graph.update_lowmem(steps=TIMED_STEPS)
         _sync(dev)
         dt = (time.perf_counter() - t0) / TIMED_STEPS
         launches = kernels.launches_since(before)
+        replays = graph.stats.replays - stats.replays
+        replayed = {k: n - stats.replayed_launches.get(k, 0) for k, n in graph.stats.replayed_launches.items()}
+        device_launches = {k: launches.get(k, 0) + replayed.get(k, 0) for k in set(launches) | set(replayed)}
         profiled = profile(lambda: graph.update_lowmem(steps=1)) if profile is not None else None
     return {
         "backend_step_s": round(dt, 3),
@@ -167,6 +185,13 @@ def backend_scale_probe(t: int = 200, image_size=(240, 320), device=None, params
         "backend_chunks": int(chunks),
         "steps": TIMED_STEPS,
         "launches": launches,
+        "device_launches": device_launches,
+        "capture": graph.capture,
+        "warm_s": round(warm_s, 3),
+        "capture_s": round(stats.capture_s, 3),
+        "graphs": stats.graphs,
+        "pool_bytes": stats.pool_bytes,
+        "replays": replays,
         "peak_allocated_gb": (round(torch.cuda.max_memory_allocated(dev) / 1e9, 3)
                               if dev.type == "cuda" else None),
         "profile": profiled,
@@ -178,8 +203,10 @@ def main(argv=None) -> Dict:
     ap.add_argument("--t", type=int, default=200, help="keyframes")
     ap.add_argument("--image_size", type=int, nargs=2, default=[240, 320])
     ap.add_argument("--device", default=None, help="device (default: cuda)")
+    ap.add_argument("--capture", action=argparse.BooleanOptionalAction, default=True,
+                    help="replay the timed steps as a CUDA graph (default; CUDA only)")
     args = ap.parse_args(argv)
-    row = backend_scale_probe(args.t, tuple(args.image_size), args.device)
+    row = backend_scale_probe(args.t, tuple(args.image_size), args.device, capture=args.capture)
     print(json.dumps(row))
     return row
 

@@ -20,9 +20,11 @@ cached as ``.npz`` (by default in the gitignored
 
   python -m droid_slam_tpu_torch.tools.longloop [--frames 288] [--image_size 384 512] \\
       [--seed 7] [--compute_dtype bfloat16] [--json out.json] [--device cpu] \\
-      [--cache_dir DIR] [--weights weights/droid_synth.msgpack]
+      [--cache_dir DIR] [--weights weights/droid_synth.msgpack] [--no-capture]
 
-It runs on CUDA unless ``--device`` names another device.
+It runs on CUDA unless ``--device`` names another device, with the fused
+step and the factor graphs' steps replayed as CUDA graphs unless
+``--no-capture`` (the CPU always runs them eagerly).
 """
 
 from __future__ import annotations
@@ -66,16 +68,22 @@ def load_or_render(seed: int, frames: int, H: int, W: int, cache_dir=None, worke
 
 
 def run_sequence(seq: Dict[str, np.ndarray], config, weights=None, device=None, warm: bool = True,
-                 on_frame: Optional[Callable] = None, profile: Optional[Callable] = None) -> Tuple[Dict, np.ndarray]:
+                 on_frame: Optional[Callable] = None, profile: Optional[Callable] = None,
+                 capture: bool = True) -> Tuple[Dict, np.ndarray]:
     """The loop protocol on a rendered sequence with ``config``: track
     every frame of ``seq``, ``warm_terminate`` at the tracked keyframe
     count (with ``warm``), then ``terminate`` with every frame as the fill
     stream, with the network of the file ``weights`` (random weights
     without one). ``on_frame(k, droid)``, when given, runs after frame k is
-    tracked. ``profile``, when given, is called last with a function that
-    runs the same terminate once more, and what it returns is the row's
-    ``"profile"``. Returns (the row, the filled camera-to-world trajectory
-    [frames, 7])."""
+    tracked. ``profile``, when given, is called last with the Droid and
+    the fill stream (a list), so that it may run the same terminate once
+    more, and what it returns is the row's ``"profile"``. ``capture`` is
+    ``Droid``'s. Terminate's launches are given as the wrappers count them
+    (``launches``) and as the card ran them (``terminate_device_launches``:
+    a captured launch runs on every replay), with its captures' cost
+    (``terminate_capture``); the peaks of allocated and of reserved memory
+    (the captured steps' pools among it) by stage. Returns (the row, the
+    filled camera-to-world trajectory [frames, 7])."""
     import torch
 
     from ..eval.ate import Trajectory, ate_rmse
@@ -83,14 +91,16 @@ def run_sequence(seq: Dict[str, np.ndarray], config, weights=None, device=None, 
     from ..runtime import Droid
 
     frames = len(seq["images"])
-    droid = Droid(config, weights=weights, device=device)
+    droid = Droid(config, weights=weights, device=device, capture=capture)
     cuda = droid.device.type == "cuda"
-    peaks = {}
+    peaks, reserved = {}, {}
 
     def peak(stage: str) -> None:
-        """The peak of allocated memory since the last stage's, in GB."""
+        """The peaks of allocated and of reserved memory (the captured
+        steps' pools among it) since the last stage's, in GB."""
         if cuda:
             peaks[stage] = round(torch.cuda.max_memory_allocated(droid.device) / 1e9, 3)
+            reserved[stage] = round(torch.cuda.max_memory_reserved(droid.device) / 1e9, 3)
             torch.cuda.reset_peak_memory_stats(droid.device)
 
     if cuda:
@@ -149,25 +159,30 @@ def run_sequence(seq: Dict[str, np.ndarray], config, weights=None, device=None, 
         "poses_finite": bool(np.isfinite(traj).all()),
         "backend_runs": [dict(steps=s, edges=e, chunks=c) for s, (e, c) in zip(PASS_STEPS, droid.backend_runs)],
         "launches": {"track": track_launches, "terminate": term_launches},
+        "terminate_device_launches": droid.terminate_stats.device_launches(term_launches),
+        "terminate_capture": {k: getattr(droid.terminate_stats, k)
+                              for k in ("graphs", "held_max", "replays", "capture_s", "pool_bytes")},
         "peak_allocated_gb": max(peaks.values()) if cuda else None,
         "peak_allocated_gb_by_stage": peaks,
+        "peak_reserved_gb_by_stage": reserved,
     }
     if profile is not None:
-        row["profile"] = profile(lambda: droid.terminate(iter(stream)))
+        row["profile"] = profile(droid, stream)
     return row, traj
 
 
 def run(seed: int, frames: int, H: int, W: int, compute_dtype: str, warm: bool = True, device=None,
-        cache_dir=None, weights=SHIPPED_WEIGHTS, profile: Optional[Callable] = None) -> Dict:
+        cache_dir=None, weights=SHIPPED_WEIGHTS, profile: Optional[Callable] = None, capture: bool = True) -> Dict:
     """The JAX tool's protocol: the loop of ``seed`` at H×W, a buffer of
     ``frames`` + 24 (every frame may keyframe, and the filler needs free
-    slots for its batches), warmup 8, the shipped weights. ``profile`` as
-    in :func:`run_sequence`."""
+    slots for its batches), warmup 8, the shipped weights. ``profile`` and
+    ``capture`` as in :func:`run_sequence`."""
     from ..runtime import DroidConfig
 
     seq = load_or_render(seed, frames, H, W, cache_dir, workers=min(8, os.cpu_count() or 1))
     config = DroidConfig(image_size=(H, W), buffer=frames + 24, warmup=8, compute_dtype=compute_dtype)
-    row, _ = run_sequence(seq, config, weights=str(weights), device=device, warm=warm, profile=profile)
+    row, _ = run_sequence(seq, config, weights=str(weights), device=device, warm=warm, profile=profile,
+                          capture=capture)
     return {"seed": seed, **row}
 
 
@@ -181,10 +196,12 @@ def main(argv=None) -> Dict:
     ap.add_argument("--device", default=None, help="device (default: cuda)")
     ap.add_argument("--cache_dir", default=None, help=f"where rendered loops are cached (default {DEFAULT_CACHE})")
     ap.add_argument("--weights", default=str(SHIPPED_WEIGHTS))
+    ap.add_argument("--capture", action=argparse.BooleanOptionalAction, default=True,
+                    help="replay the steps as CUDA graphs (default; CUDA only)")
     args = ap.parse_args(argv)
 
     row = run(args.seed, args.frames, *args.image_size, args.compute_dtype, device=args.device,
-              cache_dir=args.cache_dir, weights=args.weights)
+              cache_dir=args.cache_dir, weights=args.weights, capture=args.capture)
     print(json.dumps(row))
     if args.json:
         with open(args.json, "a") as f:

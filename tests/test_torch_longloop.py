@@ -155,20 +155,21 @@ def test_load_or_render_caches(tmp_path):
 
 def test_longloop_cli_defaults_are_the_jax_tools(monkeypatch, tmp_path):
     """The JAX tool's flags and defaults (seed 7, 288 frames, 384×512,
-    bf16), plus --device, --cache_dir and --weights, reach ``run``; --json
-    appends the row."""
+    bf16), plus --device, --cache_dir, --weights and --no-capture, reach
+    ``run``; --json appends the row."""
     seen = {}
 
-    def fake_run(seed, frames, H, W, dtype, device=None, cache_dir=None, weights=None):
+    def fake_run(seed, frames, H, W, dtype, device=None, cache_dir=None, weights=None, capture=True):
         seen.update(seed=seed, frames=frames, size=(H, W), dtype=dtype, device=device, cache_dir=cache_dir,
-                    weights=weights)
+                    weights=weights, capture=capture)
         return {"seed": seed}
 
     monkeypatch.setattr(longloop, "run", fake_run)
     out = tmp_path / "rows.jsonl"
     longloop.main(["--device", "cpu", "--json", str(out)])
+    assert seen["capture"] is True
     longloop.main(["--seed", "3", "--frames", "10", "--image_size", "64", "80", "--compute_dtype", "float32",
-                   "--cache_dir", str(tmp_path), "--weights", "w.pth", "--json", str(out)])
+                   "--cache_dir", str(tmp_path), "--weights", "w.pth", "--no-capture", "--json", str(out)])
     assert seen == dict(seed=3, frames=10, size=(64, 80), dtype="float32", device=None, cache_dir=str(tmp_path),
-                        weights="w.pth")
+                        weights="w.pth", capture=False)
     assert out.read_text().splitlines() == ['{"seed": 7}', '{"seed": 3}']
