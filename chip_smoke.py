@@ -35,10 +35,19 @@ Phases, each of which fails the run:
      results must be bitwise equal;
   3d. hold the tracking step's flight-recorder kernels (trace_begin,
      trace_stamp, trace_count in csrc/graph_cond.cu) against their plain
-     versions (utils/profiling.py's CPU path) on a [64, 41] ring with a
+     versions (utils/profiling.py's CPU path) on a [64, 47] ring with a
      48-slot mask: cursor, rows, tstamp bits and count exactly equal,
-     stamps non-decreasing; then the 38 recorder launches of one step
+     stamps non-decreasing; then the 44 recorder launches of one step
      captured and replayed (a row per replay), each kernel timed;
+  3e. hold the tracking step's depth Schur complement over the occupied
+     cells (csrc/schur_window.cu, ops/ba.py::window_schur) against its
+     plain dense version at the tracking shapes (144 edges, Pw 64, Ka 72,
+     30x40): a window drawn like the allkf cell's in bf16 and in f32
+     storage, a stereo window with self edges, and one depth frame that
+     touches all 64 poses: Ad, rhs and dz (from the same dx) within 1e-4
+     of each one's max, the occupied cells equal, bitwise over repeated
+     launches, the device time beside its byte bound and the plain
+     version's;
   4. track 8 seeded 64x64 RGB-D frames on the GPU and on the CPU (plain
      versions) with the same seeded weights, then terminate() and
      terminate(stream) on both: same keyframes and edge sets, poses within
@@ -213,7 +222,8 @@ It starts with the card's PyTorch and CUDA versions, the GPU driver's
 CUDA version and whether torch.cuda.CUDAGraph has PyTorch's own IF-node
 methods. Phases 7-12 print their walls, and the run its whole wall. It
 prints a `kernels` JSON line (corr_level, corr_slab and corr_window in
-bf16, corr_level_f32, corr_slab_f32, corr_backward and graph_cond; each
+bf16, corr_level_f32, corr_slab_f32, corr_backward, graph_cond and
+schur_window; each
 with `launches`, the wrapper's count, and `replayed_launches`, those the
 card ran again in graph replays), the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}.
@@ -809,10 +819,11 @@ def check_segment_sum(torch, segment, dev, seed: int):
 # the tracking step's flight recorder at the bench configuration: RING_ROWS
 # rows x the columns of runtime/fused.py::trace_slots, a mask of its
 # max_factors valid-edge slots, and the recorder launches captured into one
-# step: trace_begin once, trace_stamp at 31 columns, trace_count at 6
-TRACE_RING = (64, 41)
+# step: trace_begin once, trace_stamp at 31 columns, trace_count at 12 (each
+# iteration's valid edges and occupied Schur cells)
+TRACE_RING = (64, 47)
 TRACE_MASK = 48
-TRACE_STEP_LAUNCHES = {"trace_begin": 1, "trace_stamp": 31, "trace_count": 6}
+TRACE_STEP_LAUNCHES = {"trace_begin": 1, "trace_stamp": 31, "trace_count": 12}
 
 
 def check_trace_kernels(torch, profiling, graph, dev, seed: int):
@@ -912,6 +923,145 @@ def check_trace_kernels(torch, profiling, graph, dev, seed: int):
         f"{per_step} in one graph {timing['step_ms']:.5f} ms ({timing['per_launch_in_graph_ms']:.5f} ms each): "
         f"{'ok' if res['ok'] else 'FAILED'}")
     return res
+
+
+# the tracking step's dense-window GN step at the benchmark's configuration
+# (slam_bench/configs/tum_mono_240x320.json): 96 inactive + 48 active edge
+# slots, window_pad 64 poses, 64 + 8 depth frames, 30x40 features
+SCHUR_SHAPE = dict(N=144, Pw=64, Ka=72, hw=30 * 40)
+SCHUR_CASES = (("allkf", "bfloat16"), ("allkf", "float32"), ("stereo", "bfloat16"), ("worst", "bfloat16"))
+SCHUR_REPEATS = 3
+
+
+def schur_window_case(torch, kind: str, dtype: str, dev, seed: int, N: int, Pw: int, Ka: int, hw: int):
+    """Inputs of ops/ba.py::window_schur drawn on the CPU from ``seed`` and
+    moved to ``dev``: ``allkf``, a window like the all-keyframe tracking
+    cell's (t1 = 70, t0 = 45, kf0 = 40; the last third of the edges active
+    among the newest 8 frames, the rest inactive over [kf0, t1 - 4), a
+    fifth of those invalid, |ii - jj| <= 3); ``stereo``, the same with every
+    eighth edge a self edge (ii = jj, its rows zero, as build_edge_blocks
+    makes them); ``worst``, 64 live poses and a depth frame whose edges
+    touch all of them. Pw must be 64 or more for ``worst``. Returns a dict
+    of the arguments (with ``dx6``, a fixed update the test's solve
+    returns) and ``sd``, the storage dtype."""
+    g = torch.Generator().manual_seed(seed)
+    if kind == "worst":
+        t0, t1, kf0 = 10, 74, 8
+    else:
+        t0, t1, kf0 = 45, 70, 40
+    n_act = N // 3
+    ii = torch.randint(kf0, t1 - 4, (N,), generator=g)
+    ii[N - n_act:] = torch.randint(t1 - 8, t1, (n_act,), generator=g)
+    step = torch.randint(1, 4, (N,), generator=g) * (1 - 2 * torch.randint(0, 2, (N,), generator=g))
+    jj = (ii + step).clamp(kf0, t1 - 1)
+    jj = torch.where(jj == ii, ii - step, jj)
+    valid = torch.ones(N, dtype=torch.bool)
+    valid[: N - n_act] = torch.rand(N - n_act, generator=g) >= 0.2
+    if kind == "worst":
+        ii[:64] = kf0 + 12
+        jj[:64] = t0 + torch.arange(64)
+        valid[:64] = True
+    Ei = torch.randn((N, 6, hw), generator=g)
+    Ej = torch.randn((N, 6, hw), generator=g)
+    if kind == "stereo":
+        jj[::8] = ii[::8]
+        Ei[::8] = 0.0
+        Ej[::8] = 0.0
+    Q = 1.0 / (0.5 + torch.rand((Ka, hw), generator=g))
+    Q[torch.rand(Ka, generator=g) < 0.1] = 0.0  # frames outside the depth window
+    w = torch.randn((Ka, hw), generator=g)
+    live = (torch.arange(Pw) < t1 - t0).float()
+    live6 = live.repeat_interleave(6)
+    B = torch.randn((Pw * 6, Pw * 6), generator=g) / (Pw * 6) ** 0.5
+    Hm = (B @ B.T + torch.eye(Pw * 6)) * live6[:, None] * live6[None, :] + torch.diag(1.0 - live6)
+    v = torch.randn((Pw, 6), generator=g) * live[:, None]
+    dx6 = 1e-2 * torch.randn(Pw * 6, generator=g) * live6
+    scalar = lambda x: torch.tensor(x, dtype=torch.int64)
+    args = dict(Ei=Ei, Ej=Ej, ii=ii, jj=jj, edge_valid=valid, t0=scalar(t0), t1=scalar(t1), kf0=scalar(kf0),
+                Q=Q, w_rhs=w, Hm=Hm, v=v, dx6=dx6)
+    out = {k: t.to(dev) for k, t in args.items()}
+    out["sd"] = getattr(torch, dtype)
+    return out
+
+
+def schur_window_run(ba, case, fn=None, record=True):
+    """One call of ``fn`` (ops/ba.py::window_schur or its plain version) on
+    a :func:`schur_window_case`, with a solve that returns the case's fixed
+    dx6: {Ad, rhs, dz, cells} (Ad and rhs as the solve saw them, with
+    ``record``)."""
+    fn = fn or ba.window_schur
+    got = {}
+
+    def solve(Ad, rhs):
+        if record:
+            got["Ad"], got["rhs"] = Ad.clone(), rhs.clone()
+        return case["dx6"]
+
+    _, got["dz"], got["cells"] = fn(case["Ei"], case["Ej"], case["ii"], case["jj"], case["edge_valid"], case["t0"],
+                                    case["t1"], case["kf0"], case["Q"], case["w_rhs"], case["Hm"], case["v"], solve,
+                                    1e-4, 0.1, case["sd"])
+    return got
+
+
+def schur_window_bytes(case) -> int:
+    """The bytes window_schur needs at a case: the coupling rows that land
+    in a cell read once (f32), Q and w read and dz written once, Hm read and
+    Ad written, v read and rhs written, the edges (ii, jj, mask) read."""
+    Ka, hw = case["Q"].shape
+    P6 = case["Hm"].shape[0]
+    ii, jj, t0, kf0 = (case[k].cpu() for k in ("ii", "jj", "t0", "kf0"))
+    live = min(P6 // 6, int(case["t1"]) - int(t0))
+    k = ii - kf0
+    in_k = case["edge_valid"].cpu() & (k >= 0) & (k < Ka)
+    rows = sum(int((in_k & (p >= 0) & (p < live)).sum()) for p in (ii - t0, jj - t0))
+    return rows * 6 * hw * 4 + 3 * Ka * hw * 4 + 2 * P6 * P6 * 4 + 2 * P6 * 4 + ii.numel() * 17
+
+
+def check_schur_window(torch, ba, kernels, dev, seed: int):
+    """Phase 3e: ops/ba.py::window_schur's kernels (csrc/schur_window.cu)
+    against the plain dense version at the tracking shapes
+    (SCHUR_SHAPE), each of SCHUR_CASES: Ad, rhs and dz within KERNEL_TOL of
+    each one's max |plain|, the occupied cells equal, SCHUR_REPEATS runs
+    bitwise equal; the device time (profiler) beside the byte bound and the
+    plain version's time; the launches per call."""
+    cases = []
+    for n, (kind, dtype) in enumerate(SCHUR_CASES):
+        case = schur_window_case(torch, kind, dtype, dev, seed + 31 * n, **SCHUR_SHAPE)
+        before = kernels.launch_counts()
+        runs = [schur_window_run(ba, case) for _ in range(SCHUR_REPEATS)]
+        launched = kernels.launches_since(before)
+        plain = schur_window_run(ba, case, ba.window_schur_ref)
+        torch.cuda.synchronize()
+        got = runs[0]
+        errs = {k: float((got[k] - plain[k]).abs().max()) for k in ("Ad", "rhs", "dz")}
+        scales = {k: float(plain[k].abs().max()) for k in ("Ad", "rhs", "dz")}
+        bitwise = all(torch.equal(r[k], got[k]) for r in runs[1:] for k in got)
+        cells = int(got["cells"].sum())
+        n_cells = got["cells"].sum(dim=1)
+        pairs = int((n_cells * (n_cells + 1) // 2).sum())
+        by_kernel = {}
+        ms = device_ms(torch, lambda: schur_window_run(ba, case, record=False), reps=50, by_kernel=by_kernel)
+        plain_ms = device_ms(torch, lambda: schur_window_run(ba, case, ba.window_schur_ref, record=False), reps=10)
+        nbytes = schur_window_bytes(case)
+        ops = 2 * 36 * SCHUR_SHAPE["hw"] * int((n_cells * n_cells).sum())  # S over each frame's ordered pairs
+        bound_ms = 1e3 * max(nbytes / MEM_BYTES_PER_S, ops / PEAK_OPS_PER_S["float32"])
+        c = dict(kind=kind, dtype=dtype, cells=cells, pairs=pairs, max_abs_err=errs, max_abs_ref=scales,
+                 cells_equal=bool(torch.equal(got["cells"], plain["cells"])), bitwise_repeat=bitwise,
+                 launches=launched, ms=ms, by_kernel=by_kernel, plain_ms=plain_ms, bytes=nbytes, ops=ops,
+                 bound_ms=bound_ms,
+                 finite=all(bool(torch.isfinite(got[k]).all()) for k in errs))
+        c["ok"] = bool(c["finite"] and c["cells_equal"] and bitwise
+                       and all(errs[k] <= KERNEL_TOL * scales[k] for k in errs)
+                       and launched.get("schur_window") == launched.get("schur_backsub") == SCHUR_REPEATS)
+        cases.append(c)
+        log(f"  schur_window {kind} {dtype}: {cells} cells, {pairs} pairs; max_err "
+            + ", ".join(f"{k} {errs[k]:.3e} (tol {KERNEL_TOL * scales[k]:.3e})" for k in errs)
+            + f"; cells {'equal' if c['cells_equal'] else 'DIFFER'}; repeat {'bitwise' if bitwise else 'DIFFERS'}; "
+            f"{ms:.4f} ms (bound {bound_ms:.5f} ms, {nbytes / 1e6:.2f} MB), plain {plain_ms:.4f} ms; "
+            f"launches {launched}: {'ok' if c['ok'] else 'FAILED'}")
+        names = {k: next((part.split("(")[0] for part in k.split("::") if "_kernel" in part), k[:40]) for k in by_kernel}
+        log("    by kernel (ms per call): " + ", ".join(f"{names[k]} {v:.4f}" for k, v in by_kernel.items()))
+    return cases
 
 
 def small_replay(torch, np, Droid, DroidConfig, init_params, seed: int, meshes=None):
@@ -1294,12 +1444,16 @@ def main_path(torch, np, kernels, Droid, DroidConfig, init_params, seed: int, ou
     # lookup), and the capture records them once more; then every replay
     # runs 1 probe + 4 + 2 iterations. 4 levels each; the probe in f32
     # whatever the compute type.
+    # Each update iteration runs two GN steps: a schur_window and a
+    # schur_backsub launch each.
     eager = (cfg.warmup - 1) + 16 + 7
+    gn_queued, gn_device = 2 * (16 + 6 + 6), 2 * (16 + 6 + 6 * res["replays"])
     res.update(
         expected_launches={"corr_level": 4 * (eager + 7), "corr_level_f32": 4 * (cfg.warmup - 1 + 2),
-                           "graph_cond": GRAPH_IF_NODES},
+                           "graph_cond": GRAPH_IF_NODES, "schur_window": gn_queued, "schur_backsub": gn_queued},
         expected_device_launches={"corr_level": 4 * (eager + 7 * res["replays"]), "corr_level_f32": 4 * t,
-                                  "graph_cond": GRAPH_IF_NODES * res["replays"]},
+                                  "graph_cond": GRAPH_IF_NODES * res["replays"], "schur_window": gn_device,
+                                  "schur_backsub": gn_device},
     )
     got = {k: res["launches"].get(k) for k in res["expected_launches"]}
     got_device = {k: res["device_launches"].get(k) for k in res["expected_device_launches"]}
@@ -2813,11 +2967,16 @@ LOOP_KEYFRAMES = (150, 240)
 # keyframes, fitted scale
 QUARTER_KEYFRAMES, QUARTER_ATE, QUARTER_SCALE = (10, 55), 0.45, (0.25, 12.0)
 PROBE_JAX_EDGES = 3138  # the JAX package's record of the probe's edges (BENCH_r05.json), printed beside
-# what the long loop gave before its terminate's steps were captured (the
-# eager terminate, NVIDIA H100 80GB HBM3 at 700 W): 205 keyframes and an ATE
-# of 2.4291 after terminate; the captured one must keep the keyframes and
-# stay within LOOP_ATE_TOL of the ATE
-LOOP_REFERENCE, LOOP_ATE_TOL = (205, 2.4291), 1e-3
+# what the long loop gives with every step eager (capture=False, TF32 off,
+# NVIDIA H100 80GB HBM3 at 700 W): 213 keyframes and an ATE of 2.4321 after
+# terminate; the captured run must keep the keyframes and stay within
+# LOOP_ATE_TOL of the ATE. A change to the order of the tracking step's
+# sums moves both: the window Schur complement over the occupied cells
+# gave these, and the same eager run with ops/ba.py::window_schur_ref (the
+# dense E) forced in still gives 205 and 2.4291; in f32 storage the two
+# orders part the other way (dense 213 and 2.4331, cells 205 and 2.4256).
+# After such a change, measure them again eagerly.
+LOOP_REFERENCE, LOOP_ATE_TOL = (213, 2.4321), 1e-3
 # the sweep's rows: (seed, compute dtype, phase 7's row of the same seed and dtype)
 SWEEP_ROWS = ((7, "float32", 1), (11, "bfloat16", 6))
 
@@ -3058,7 +3217,7 @@ def main(argv=None) -> int:
     from droid_slam_tpu_torch.data import dataset, native_loader, streams
     from droid_slam_tpu_torch.data.synthetic import SyntheticDataset, render_sequence
     from droid_slam_tpu_torch.models.droid_net import DroidNet, init_params
-    from droid_slam_tpu_torch.ops import corr, kernels, lie, segment
+    from droid_slam_tpu_torch.ops import ba, corr, kernels, lie, segment
     from droid_slam_tpu_torch.ops import projective as pops
     from droid_slam_tpu_torch.runtime import Droid, DroidConfig, graph
     from droid_slam_tpu_torch.runtime.config import preset
@@ -3120,6 +3279,9 @@ def main(argv=None) -> int:
 
     log("phase 3d: the flight recorder's kernels vs their plain versions at the tracking step's ring")
     trace_res = check_trace_kernels(torch, profiling, graph, dev, args.seed)
+
+    log("phase 3e: the window Schur complement over the occupied cells vs the plain dense version")
+    schur_cases = check_schur_window(torch, ba, kernels, dev, args.seed)
 
     # with the other kernel checks: late in the run torch.profiler has come
     # back with some or none of the device events of these launches
@@ -3319,6 +3481,23 @@ def main(argv=None) -> int:
         bound_by=gc["bound_by"],
         library_ms=None,
     )))
+    # the window Schur complement: no Pallas kernel (the JAX package's XLA
+    # dense E); the allkf bf16 case of phase 3e, with phase 5's launches
+    sw = next(c for c in schur_cases if c["kind"] == "allkf" and c["dtype"] == "bfloat16")
+    kernel_rows.append(share(dict(
+        name="schur_window",
+        route="cuda",
+        source="droid_slam_tpu_torch/csrc/schur_window.cu",
+        replaces="droid_slam_tpu/ops/ba.py:722 (the dense E of ba_iteration_dense_window in XLA; not a Pallas kernel)",
+        launches=main_res["launches"].get("schur_window", 0),
+        replayed_launches=main_res["replayed_launches"].get("schur_window", 0),
+        max_abs_err=max(sw["max_abs_err"].values()),
+        ms=sw["ms"],
+        plain_ms=sw["plain_ms"],
+        bound_ms=sw["bound_ms"],
+        bound_by="bytes" if sw["bytes"] / MEM_BYTES_PER_S >= sw["ops"] / PEAK_OPS_PER_S["float32"] else "operations",
+        library_ms=None,
+    )))
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(dict(
             device=torch.cuda.get_device_name(0), nvidia_smi=smi, torch=torch.__version__,
@@ -3327,7 +3506,7 @@ def main(argv=None) -> int:
             small_replay=small,
             main_path=main_res, captured_vs_eager=capture_res, terminate_path=term_res, synthetic_protocol=proto, host_engine=host,
             training=train, distributed=dist_res, files=files, reference_scale=scale, kernels=kernel_rows,
-            trace_kernels=trace_res,
+            trace_kernels=trace_res, schur_window=schur_cases,
         ), indent=1))
 
     failed = [f"{f}: no tensor-core instructions" for f, k in tile_mma.items() if k == 0]
@@ -3362,6 +3541,7 @@ def main(argv=None) -> int:
     failed += [f"segment_sum {c['name']}" for c in seg_cases if not c["ok"]]
     if not trace_res["ok"]:
         failed.append("phase 3d trace kernels")
+    failed += [f"phase 3e schur_window {c['kind']} {c['dtype']}" for c in schur_cases if not c["ok"]]
     if not main_res["ok"]:
         failed.append("main path")
     if not capture_res["graph_cond"]["ok"]:

@@ -6,8 +6,10 @@ block scatters, the windowed pose system, and two Schur-complement
 iterations:
 
 * :func:`ba_iteration_dense_window` — the fused tracking step's: the
-  pose-depth coupling scattered into a dense window. ``t0``, ``t1`` and
-  ``kf0`` are 0-dim tensors, so the iteration never reads to the host.
+  depth Schur complement over the window's (depth frame, pose) cells
+  (:func:`window_schur`: the occupied cells in ``csrc/schur_window.cu`` on
+  the card, a dense window in plain PyTorch on the CPU). ``t0``, ``t1``
+  and ``kf0`` are 0-dim tensors, so the iteration never reads to the host.
 * :func:`ba_iteration` / :func:`ba_solve` — the global backend's, the
   host engine's and the trajectory filler's: a block-sparse Schur
   complement over a pair schedule that the host builds once per graph
@@ -283,16 +285,19 @@ def ba_iteration_dense_window(
     motion_only: bool = False,
     schur_dtype: torch.dtype = torch.float32,
 ):
-    """One GN iteration with a dense windowed Schur complement
+    """One GN iteration with a windowed Schur complement
     (``ops/ba.py::ba_iteration_dense_window`` of the JAX package).
 
-    The pose-depth coupling is scattered into a dense E [kwin, window·6, HW]
-    and S = Σ_k E_k Q_k E_kᵀ is one contraction. ``schur_dtype`` is the
-    storage dtype of E; the contractions accumulate in f32. The RGB-D prior
-    adds ``alpha`` to the depth diagonal where ``disps_sens`` > 0. Every
-    valid edge must satisfy kf0 ≤ ii < kf0 + kwin. With ``motion_only``
-    only the poses move: the damped pose system alone is solved, with no
-    refinement step, as in the JAX package.
+    The depth Schur complement S = Σ_k E_k Q_k E_kᵀ over the (depth frame,
+    pose) cells of the window is :func:`window_schur`'s: the occupied cells
+    only on the card, a dense E [kwin, window·6, HW] on the CPU.
+    ``schur_dtype`` is the storage dtype of E; the contractions accumulate
+    in f32. The RGB-D prior adds ``alpha`` to the depth diagonal where
+    ``disps_sens`` > 0. Every valid edge must satisfy kf0 ≤ ii < kf0 + kwin.
+    With ``motion_only`` only the poses move: the damped pose system alone
+    is solved, with no refinement step, as in the JAX package. Returns
+    (poses, disps, the occupied cells [kwin, window] bool; None with
+    ``motion_only``, which has no depth system).
     """
     F = poses.shape[0]
     ht, wd = disps.shape[-2:]
@@ -313,7 +318,7 @@ def ba_iteration_dense_window(
 
     if motion_only:
         dx = cholesky_solve(_damp(Hm, lm, ep, live6), v.reshape(Pw * 6, 1)).reshape(Pw, 6)
-        return lie.retr(poses, _place_rows(dx * live[:, None], t0, F)), disps
+        return lie.retr(poses, _place_rows(dx * live[:, None], t0, F)), disps, None
 
     # ---- depth system over the kwin-frame window ----
     k_rel = ii - kf0
@@ -335,13 +340,36 @@ def ba_iteration_dense_window(
     w_rhs = w_rhs - m * alpha * (disps_w - sens_w)
     Q = in_kx.to(dtype)[:, None] / torch.where(C == 0.0, torch.ones_like(C), C)
 
+    def solve(Ad, rhs):
+        dx = cholesky_solve(Ad, rhs)
+        dx = dx + cholesky_solve(Ad, rhs - torch.matmul(Ad, dx))  # f32 refinement
+        return dx.reshape(Pw * 6) * live6
+
+    dx6, dz, cells = window_schur(blocks.Ei, blocks.Ej, ii, jj, edge_valid, t0, t1, kf0, Q, w_rhs, Hm, v,
+                                  solve, lm, ep, sd)
+
+    poses = lie.retr(poses, _place_rows(dx6.reshape(Pw, 6), t0, F))
+    disps = disps + _place_rows(dz, kf0, F).reshape(F, ht, wd)
+    return poses, disps, cells
+
+
+def window_schur_ref(Ei, Ej, ii, jj, edge_valid, t0, t1, kf0, Q, w_rhs, Hm, v, solve, lm, ep, schur_dtype):
+    """Plain version of :func:`window_schur`: the pose-depth coupling
+    scattered into a dense E [Ka, Pw·6, HW] and S = Σ_k E_k Q_k E_kᵀ as one
+    contraction, as the JAX package writes it."""
+    kwin, hw = Q.shape
+    Pw = Hm.shape[0] // 6
+    dev, dtype, sd = Hm.device, Hm.dtype, schur_dtype
+    live6 = (torch.arange(Pw, device=dev) < (t1 - t0)).to(dtype).repeat_interleave(6)
+
     # ---- dense windowed E: edge couplings scattered to (k, p) cells ----
+    k_rel = ii - kf0
     in_k = edge_valid & (k_rel >= 0) & (k_rel < kwin)
     k_cell = k_rel.clamp(0, kwin - 1) * Pw
     # the Ei rows, then the Ej rows, each in edge order
-    cells = [torch.where(in_k & (p_rel >= 0) & (p_rel < Pw), k_cell + p_rel, kwin * Pw)
-             for p_rel in (ii_r, jj_r)]
-    E = segment_sum(torch.cat(cells), torch.cat([blocks.Ei, blocks.Ej]).to(sd).float(), kwin * Pw)
+    p_rows = torch.cat([ii - t0, jj - t0])
+    cells = torch.where(in_k.repeat(2) & (p_rows >= 0) & (p_rows < Pw), k_cell.repeat(2) + p_rows, kwin * Pw)
+    E = segment_sum(cells, torch.cat([Ei, Ej]).to(sd).float(), kwin * Pw)
     E = E.to(sd).reshape(kwin, Pw * 6, hw) * live6[None, :, None].to(sd)
 
     EQ = E * Q[:, None, :].to(sd)
@@ -353,15 +381,108 @@ def ba_iteration_dense_window(
     eye = torch.eye(Pw * 6, dtype=dtype, device=dev)
     Ad = A + (ep + lm * A) * eye * live6[:, None]
     rhs = (v.reshape(Pw * 6) - v_schur).reshape(Pw * 6, 1)
-    dx = cholesky_solve(Ad, rhs)
-    dx = dx + cholesky_solve(Ad, rhs - torch.matmul(Ad, dx))  # f32 refinement
-    dx6 = dx.reshape(Pw * 6) * live6
+    dx6 = solve(Ad, rhs)
 
     dz = Q * (w_rhs - torch.einsum("kux,u->kx", E32, dx6.to(sd).float()))
+    live_rows = torch.where(p_rows < t1 - t0, cells, kwin * Pw)
+    occupied = torch.zeros(kwin * Pw + 1, dtype=torch.bool, device=dev).index_fill_(0, live_rows, True)
+    return dx6, dz, occupied[:-1].reshape(kwin, Pw)
 
-    poses = lie.retr(poses, _place_rows(dx6.reshape(Pw, 6), t0, F))
-    disps = disps + _place_rows(dz, kf0, F).reshape(F, ht, wd)
-    return poses, disps
+
+# the cell blocks of the cell-sum pass and the blocks of the Gram pass of
+# csrc/schur_window.cu (each walks its work, the cells or the pairs the
+# device counted, in grid strides), and the pixels of a cell-sum block (the
+# entry point checks it against its own layout)
+SCHUR_MAX_BLOCKS = 1024
+SCHUR_SUM_PIXELS = 256
+
+
+def schur_max_pairs(rows: int, window: int, kwin: int) -> int:
+    """The most pairs of cells (slot a ≤ slot b) of one depth frame, summed
+    over the frames, that ``rows`` edge rows can occupy in ``kwin`` frames
+    of ``window`` poses: the sum of n(n+1)/2 over the frames' cell counts n
+    is largest with whole frames first."""
+    full, rest = divmod(rows, window)
+    if full >= kwin:
+        return kwin * window * (window + 1) // 2
+    return full * window * (window + 1) // 2 + rest * (rest + 1) // 2
+
+
+def window_schur(Ei, Ej, ii, jj, edge_valid, t0, t1, kf0, Q, w_rhs, Hm, v, solve, lm, ep, schur_dtype):
+    """The depth Schur complement of one dense-window GN step, the damped
+    pose solve and the depth back-substitution.
+
+    Ei, Ej [N, 6, HW] are the edges' couplings, cells of the window at
+    (depth frame ii − kf0, pose ii − t0) and (ii − kf0, jj − t0); a row
+    counts where the edge is valid, the frame in [0, Ka) and the pose in
+    [0, min(Pw, t1 − t0)). Q, w_rhs [Ka, HW] are the depth block's inverse
+    and rhs, Hm [Pw·6, Pw·6] and v [Pw, 6] the pose system; each coupling
+    row is rounded to ``schur_dtype`` (bf16 or f32), the products
+    accumulate in f32. ``solve(Ad, rhs)`` gets the damped reduced system
+    (rhs [Pw·6, 1]) and returns dx6 [Pw·6] f32. Returns (dx6, dz [Ka, HW],
+    the occupied cells [Ka, Pw] bool).
+
+    A CUDA tensor goes to the kernels of ``csrc/schur_window.cu``, which
+    touch the occupied cells only (t0, t1, kf0: 0-dim int64 read on the
+    device, static grids, no allocation inside: safe to capture); anything
+    they do not take raises. A CPU tensor goes to :func:`window_schur_ref`.
+    """
+    if Ei.device.type == "cpu":
+        return window_schur_ref(Ei, Ej, ii, jj, edge_valid, t0, t1, kf0, Q, w_rhs, Hm, v, solve, lm, ep,
+                                schur_dtype)
+    from . import kernels
+
+    N = ii.shape[0]
+    kwin, hw = Q.shape
+    P6 = Hm.shape[0]
+    Pw = P6 // 6
+    dev = Ei.device
+    floats = (Ei, Ej, Q, w_rhs, Hm, v)
+    ints = (ii, jj, t0, t1, kf0)
+    if (schur_dtype not in (torch.bfloat16, torch.float32)
+            or any(t.device != dev or t.dtype != torch.float32 or not t.is_contiguous() for t in floats)
+            or any(t.device != dev or t.dtype != torch.int64 or not t.is_contiguous() for t in ints)
+            or edge_valid.device != dev or edge_valid.dtype != torch.bool
+            or Ei.shape != (N, 6, hw) or Ej.shape != (N, 6, hw) or w_rhs.shape != (kwin, hw)
+            or Hm.shape != (P6, P6) or P6 % 6 or v.numel() != P6 or edge_valid.shape != (N,)
+            or jj.shape != (N,) or any(t.dim() != 0 for t in (t0, t1, kf0))
+            or kwin > 4096 or kwin * Pw > 40960 or 8 * N > 40960):
+        raise ValueError("window_schur: the kernels take contiguous f32 blocks, int64 edges and 0-dim window "
+                         "bounds, a bool edge mask and bf16 or f32 storage on one CUDA device, with "
+                         "Ka <= 4096, Ka*Pw <= 40960 and N <= 5120")
+    rows = 2 * N
+    pairs = schur_max_pairs(rows, Pw, kwin)
+    i32 = dict(dtype=torch.int32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    row_cell = torch.empty(rows, **i32)
+    cell_of = torch.empty(kwin * Pw, **i32)
+    cell_key = torch.empty(rows, **i32)
+    frame_off = torch.empty(kwin + 1, **i32)
+    pair_off = torch.empty(kwin + 1, **i32)
+    counts = torch.empty(2, **i32)
+    occupied = torch.empty((kwin, Pw), dtype=torch.bool, device=dev)
+    Ec = torch.empty((rows, 6, hw), dtype=schur_dtype, device=dev)
+    EQc = torch.empty_like(Ec)
+    vq_part = torch.empty((rows, -(-hw // SCHUR_SUM_PIXELS), 6), **f32)
+    G = torch.empty((max(pairs, 1), 72), **f32)
+    Ad = torch.empty((P6, P6), **f32)
+    rhs = torch.empty((P6, 1), **f32)
+    bf16 = int(schur_dtype == torch.bfloat16)
+    tag = "bf16" if bf16 else "f32"
+    kernels.launch(
+        "schur_window", dev,
+        *(t.data_ptr() for t in (ii, jj, edge_valid, t0, t1, kf0, Ei, Ej, Q, w_rhs, Hm, v, row_cell, cell_of,
+                                 cell_key, frame_off, pair_off, counts, occupied, Ec, EQc, vq_part, G, Ad, rhs)),
+        N, hw, Pw, kwin, bf16, SCHUR_SUM_PIXELS, max(1, min(rows, SCHUR_MAX_BLOCKS)),
+        max(1, min(pairs, SCHUR_MAX_BLOCKS)), lm, ep, dtype=tag,
+    )
+    dx6 = solve(Ad, rhs).contiguous()
+    if dx6.dtype != torch.float32 or dx6.shape != (P6,):
+        raise ValueError("window_schur: solve must return dx6 [Pw*6] f32")
+    dz = torch.empty((kwin, hw), **f32)
+    kernels.launch("schur_backsub", dev, Ec.data_ptr(), cell_key.data_ptr(), frame_off.data_ptr(), Q.data_ptr(),
+                   w_rhs.data_ptr(), dx6.data_ptr(), dz.data_ptr(), hw, Pw, kwin, bf16, dtype=tag)
+    return dx6, dz, occupied
 
 
 # -----------------------------------------------------------------------------

@@ -63,6 +63,19 @@ KERNELS = {
         "corr_backward_launch",
         [_INT] + [_VOIDP] * 9 + [_INT] * 6 + [ctypes.c_longlong, _INT, _VOIDP],
     ),
+    # the tracking step's depth Schur complement (ops/ba.py::window_schur):
+    # one launch is four kernels (cells, sums, Gram, assembly); then the
+    # back-substitution, one kernel
+    "schur_window": (
+        "schur_window.cu",
+        "schur_window_launch",
+        [_VOIDP] * 25 + [_INT] * 8 + [ctypes.c_float] * 2 + [_VOIDP],
+    ),
+    "schur_backsub": (
+        "schur_window.cu",
+        "schur_backsub_launch",
+        [_VOIDP] * 7 + [_INT] * 4 + [_VOIDP],
+    ),
     # the set kernel of an IF node, captured into a CUDA graph
     # (runtime/graph.py): one launch per node captured
     "graph_cond": (

@@ -140,11 +140,15 @@ def _trace_layout(config) -> List[Tuple[str, Optional[str]]]:
     iterations, then the ``frontend_iters2`` in the keep body, its start
     closes ``ba`` (the previous iteration's tail), the time after its
     lookups and operator ``update`` and after its GN steps ``ba``; its
-    valid-edge count (``edges``) is a count, not a time."""
+    valid-edge count (``edges``) is a count, not a time, and so is the
+    number of (depth frame, pose) cells its first GN step's Schur
+    complement occupied (``cells``, phase None: no reader of the phases
+    sees it)."""
 
     def iterations(ks):
         return [(f"it{k}.{part}", phase) for k in ks
-                for part, phase in (("start", "ba"), ("op", "update"), ("gn", "ba"), ("edges", "edges"))]
+                for part, phase in (("start", "ba"), ("op", "update"), ("gn", "ba"), ("edges", "edges"),
+                                    ("cells", None))]
 
     n1, n2 = config.frontend_iters1, config.frontend_iters2
     return ([("tstamp", None), ("step.start", None), ("fnet.end", "encode"), ("probe.end", "encode"),
@@ -510,18 +514,21 @@ def build_track_step(net, config):
         eta_full = 0.2 * st.damping + 1e-7
 
         poses, disps = st.poses, st.disps
-        for _ in range(2):
-            poses, disps = ba_ops.ba_iteration_dense_window(
+        for gn in range(2):
+            poses, disps, occupied = ba_ops.ba_iteration_dense_window(
                 poses, disps, st.intrinsics[0], st.disps_sens,
                 ba_tgt, ba_wgt, eta_full, ba_ii, ba_jj, ba_ok,
                 t0, t1, kf0_ba, Pw, Ka, schur_dtype=cdt,
             )
+            if gn == 0:
+                cells = occupied  # the first GN step's occupied cells
         st.assign_("poses", poses)
         st.assign_("disps", disps.clamp(min=0.001))
         st.age += valid.long()
         if it is not None:
             mark(st, f"it{it}.gn")
             profiling.count(st.trace_ring, st.trace_row, slots[f"it{it}.edges"], valid)
+            profiling.count(st.trace_ring, st.trace_row, slots[f"it{it}.cells"], cells)
 
         if config.upsample:
             # full-res disparity maintenance (depth_video.py:126-130)

@@ -9,9 +9,11 @@ step's device flight recorder.
 * The recorder on the CPU: the row cursor wraps at ``RING_ROWS``; tracking
   40 frames at the benchmark fixture's size (48x64, buffer 40, warmup 8,
   every frame a keyframe) writes one row per frame whose stamps follow the
-  step's order, whose branch columns match the public state and whose
-  edge count is ``len(Droid.edges)``; the keyframes equal, bit for bit,
-  those of the same run with the stamps removed. The trained replay
+  step's order, whose branch columns match the public state, whose
+  edge count is ``len(Droid.edges)`` and whose Schur cell counts are
+  present for every update iteration and bounded by the edge slots; the
+  keyframes equal, bit for bit, those of the same run with the stamps
+  removed. The trained replay
   (probe skips, culls) holds the branch columns on every side.
 * The phase map (``fused.trace_phases``): each row's stamps, each less
   the one before it, sum by phase to the step, with one entry per body
@@ -49,6 +51,7 @@ SHIPPED = str(Path(__file__).resolve().parents[1] / "weights" / "droid_synth.msg
 FRAMES = 40
 SIZE = (48, 64)
 ALLKF = dict(image_size=SIZE, buffer=40, warmup=8, filter_thresh=-1.0, keyframe_thresh=0.0)
+COUNTS = (".edges", ".cells")  # the recorder's count columns (the rest are times)
 
 
 # ---------------------------------------------------------------------------
@@ -178,7 +181,7 @@ def test_one_row_per_frame_in_the_steps_order(allkf_run):
     slots = d.session.slots
     assert list(slots) == list(fused_step.trace_slots(d.config)) and d._state.trace_ring.shape[1] == len(slots)
     for r in rows:
-        times = [r[n] for n in slots if n in r and n != "tstamp" and not n.endswith(".edges")]
+        times = [r[n] for n in slots if n in r and n != "tstamp" and not n.endswith(COUNTS)]
         assert times == sorted(times)  # the columns are in the order the step reaches them
 
 
@@ -197,7 +200,8 @@ def test_branch_columns_match_the_public_state(allkf_run):
 def test_phases_sum_to_the_step_with_an_entry_per_body_taken(allkf_run):
     d, _ = allkf_run
     phases = d.session.phases
-    assert list(phases) == [n for n in d.session.slots if n not in ("tstamp", "step.start")]
+    assert list(phases) == [n for n in d.session.slots
+                            if n not in ("tstamp", "step.start") and not n.endswith(".cells")]
     for t, r in enumerate(d.session.rows()):
         prev, by_phase = r["step.start"], {}
         for name, value in r.items():
@@ -220,6 +224,18 @@ def test_edge_count_is_the_active_edges_after_the_frame(allkf_run):
             assert r[its[-1]] == edges > 0
             counted += 1
     assert counted == FRAMES - d.config.warmup
+
+
+def test_cells_count_each_update_iteration(allkf_run):
+    """Each update iteration's first GN step counts the (depth frame, pose)
+    cells its Schur complement occupied: some, and at most two per edge
+    slot (the E_i and E_j rows of each edge, active and inactive)."""
+    d, _ = allkf_run
+    slots = d.config.inactive_pad + fused_step._edge_slots(d.config)
+    for r in d.session.rows():
+        iters = [n[:-len(".gn")] for n in r if n.endswith(".gn")]
+        assert [n[:-len(".cells")] for n in r if n.endswith(".cells")] == iters
+        assert all(0 < r[f"{it}.cells"] <= 2 * slots for it in iters)
 
 
 def test_the_recorder_leaves_the_keyframes_bit_for_bit(allkf_run, monkeypatch):
@@ -328,7 +344,7 @@ def test_card_replay_fills_a_row_in_order(cuda_device):
     rows = d.session.rows()
     assert [r["tstamp"] for r in rows] == [float(t) for t in range(12)]
     for r in rows[d.config.warmup:]:
-        times = [r[n] for n in d.session.slots if n in r and n != "tstamp" and not n.endswith(".edges")]
+        times = [r[n] for n in d.session.slots if n in r and n != "tstamp" and not n.endswith(COUNTS)]
         assert times == sorted(times) and "keep.start" in r and "cull.start" not in r
     assert rows[-1]["it5.edges"] == len(d.edges)
 
@@ -349,7 +365,7 @@ def test_card_stamps_and_spans_share_the_profilers_clock(cuda_device):
     kernels = sorted(e.start_ns() for e in events
                      if "trace_stamp_kernel" in e.name() or "trace_begin_kernel" in e.name())
     stamps = [r[n] for r in d.session.rows()[12:] for n in d.session.slots
-              if n in r and n != "tstamp" and not n.endswith(".edges")]
+              if n in r and n != "tstamp" and not n.endswith(COUNTS)]
     assert len(kernels) == len(stamps) > 0
     # the two clocks drift some ppm apart (3-25 over a traced stretch): a
     # line through the pairs leaves each kernel within a few us of its stamp
