@@ -21,10 +21,10 @@ whose branches are conditional nodes.
 
 The step writes its own flight recorder as it runs (``SLAMState.trace_ring``,
 one row per step, columns named by :func:`trace_slots`): the time at each
-phase's boundary, and each update iteration's valid-edge count
-(:mod:`..utils.profiling`). A column left empty says which branches the
-frame did not take. The recorder is not tracking state: nothing of the
-step reads it.
+phase's boundary, and each update iteration's valid-edge count (in stereo
+its valid self edges too; :mod:`..utils.profiling`). A column left empty
+says which branches the frame did not take. The recorder is not tracking
+state: nothing of the step reads it.
 
 Semantics follow droid_frontend.py / factor_graph.py / motion_filter.py of
 the reference, with the dense windowed Schur BA of the JAX package. Writes
@@ -143,12 +143,16 @@ def _trace_layout(config) -> List[Tuple[str, Optional[str]]]:
     valid-edge count (``edges``) is a count, not a time, and so is the
     number of (depth frame, pose) cells its first GN step's Schur
     complement occupied (``cells``, phase None: no reader of the phases
-    sees it)."""
+    sees it). In stereo each iteration has two columns more: the time
+    after its lookups (``corr``, which closes ``update`` too, so the
+    phase still runs from the start to after the operator) and its valid
+    self edges (``self``, a count of phase None)."""
+    parts = [("start", "ba"), ("op", "update"), ("gn", "ba"), ("edges", "edges"), ("cells", None)]
+    if config.stereo:
+        parts = parts[:1] + [("corr", "update")] + parts[1:] + [("self", None)]
 
     def iterations(ks):
-        return [(f"it{k}.{part}", phase) for k in ks
-                for part, phase in (("start", "ba"), ("op", "update"), ("gn", "ba"), ("edges", "edges"),
-                                    ("cells", None))]
+        return [(f"it{k}.{part}", phase) for k in ks for part, phase in parts]
 
     n1, n2 = config.frontend_iters1, config.frontend_iters2
     return ([("tstamp", None), ("step.start", None), ("fnet.end", "encode"), ("probe.end", "encode"),
@@ -487,6 +491,8 @@ def build_track_step(net, config):
         # stereo self edges (i, i) match the left image against the right
         rig2 = (ii == jj).long() if stereo else 0
         corr = corr_ops.corr_lookup(st.fmaps[ii, 0], st.fmaps[jj, rig2], coords1)
+        if it is not None and stereo:
+            mark(st, f"it{it}.corr")
 
         k_rel = (ii - kf0).clamp(0, Ka - 1)
         net_e, delta, wgt, eta_win, upmask = update_op(
@@ -529,6 +535,8 @@ def build_track_step(net, config):
             mark(st, f"it{it}.gn")
             profiling.count(st.trace_ring, st.trace_row, slots[f"it{it}.edges"], valid)
             profiling.count(st.trace_ring, st.trace_row, slots[f"it{it}.cells"], cells)
+            if stereo:
+                profiling.count(st.trace_ring, st.trace_row, slots[f"it{it}.self"], valid & (ii == jj))
 
         if config.upsample:
             # full-res disparity maintenance (depth_video.py:126-130)
