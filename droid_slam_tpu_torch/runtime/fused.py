@@ -7,7 +7,9 @@ initialised flag as 0-dim tensors) lives on the device in one
 :class:`SLAMState`, and ``track_step(state, ...)`` runs motion filter +
 keyframe append + graph maintenance (aged-edge culling, proximity/NMS edge
 selection, keyframe removal) + operator iterations + windowed dense-Schur
-BA.
+BA. The edge store is sized for the init's neighbourhood; the update
+branch's iterations run over a view of it of static length that holds
+every valid edge (:func:`_update_rows`, :func:`_edge_view`).
 
 JAX's ``lax.cond`` is :func:`.graph.cond` on a device scalar (keyframe
 append, init, update, cull or keep) and ``fori_loop`` a Python loop of
@@ -121,6 +123,33 @@ def _edge_slots(config) -> int:
     max_factors, whichever is larger, rounded up to a multiple of 8."""
     init_peak = 6 * config.warmup - 12 + (config.warmup if config.stereo else 0)
     return -(-max(config.max_factors, init_peak) // 8) * 8
+
+
+# source keyframes of the update branch's proximity candidates: the newest five
+_UPDATE_SOURCES = 5
+
+
+def _update_rows(config) -> int:
+    """Static length of the view of the edge store that the update
+    branch's iterations run over: the most valid edges that its
+    ``_add_edges(evict=True, budget=max_factors)`` can leave.
+
+    Eviction holds the count at ``max_factors`` unless more candidates pass
+    than that; the candidates that pass are at most the base edges or,
+    where the base leaves room, ``max_factors + 2`` (greedy picks are taken
+    while the count is at most ``max_factors``, two edges each), and at
+    most the candidate array's length; and never more than the store."""
+    cap = config.max_factors
+    base = _UPDATE_SOURCES * (2 * (config.frontend_radius + 1) + int(config.stereo))
+    cands = base + 2 * _n_greedy(cap)
+    return min(_edge_slots(config), max(cap, min(cands, max(base, cap + 2))))
+
+
+def _edge_view(valid: Tensor, rows: int) -> Tensor:
+    """The first ``rows`` slots of the store with the valid ones first,
+    each group in slot order: where at most ``rows`` are valid, an index
+    that holds every valid edge in the store's own order."""
+    return torch.argsort((~valid).long(), stable=True)[:rows]
 
 
 def _trace_layout(config) -> List[Tuple[str, Optional[str]]]:
@@ -435,6 +464,17 @@ def _proximity_candidates(
     )
 
 
+def _update_candidates(st: SLAMState, config, t1: Tensor):
+    """The update branch's proximity candidates once keyframe ``t1`` − 1
+    (0-dim) is in: sources the newest :data:`_UPDATE_SOURCES` keyframes,
+    targets the last ``frontend_window``."""
+    return _proximity_candidates(
+        st, t1 - _UPDATE_SOURCES, (t1 - config.frontend_window).clamp(min=0), _UPDATE_SOURCES,
+        config.frontend_window, rad=config.frontend_radius, nms=config.frontend_nms,
+        thresh=config.frontend_thresh, beta=config.beta, stereo=config.stereo, max_factors=config.max_factors,
+    )
+
+
 # -----------------------------------------------------------------------------
 # the track step
 # -----------------------------------------------------------------------------
@@ -451,6 +491,7 @@ def build_track_step(net, config):
 
     h, w = config.feat_size
     Nmax = config.max_factors
+    V = _update_rows(config)
     Pw = config.window_pad
     Ka = Pw + 8
     warmup = config.warmup
@@ -463,12 +504,16 @@ def build_track_step(net, config):
 
     # ---------------- one operator iteration (factor_graph.py:199-251) -----
 
-    def update_iteration(st: SLAMState, fixed_t0: int, it: Optional[int] = None) -> None:
-        """One operator iteration; ``it``, the update's iteration number,
-        names its flight-recorder columns (the init's iterations have none)."""
+    def update_iteration(st: SLAMState, fixed_t0: int, rows: Tensor, it: Optional[int] = None) -> None:
+        """One operator iteration over the edge store's slots ``rows``, an
+        index that holds every valid edge in slot order (the init passes
+        the whole store, the update branch its view of
+        :func:`_update_rows` slots); the outputs land at those slots.
+        ``it``, the update's iteration number, names its flight-recorder
+        columns (the init's iterations have none)."""
         if it is not None:
             mark(st, f"it{it}.start")
-        ii, jj, valid = st.ii, st.jj, st.valid
+        ii, jj, valid = (x.index_select(0, rows) for x in (st.ii, st.jj, st.valid))
         B = st.poses.shape[0]
         dev = ii.device
 
@@ -486,7 +531,7 @@ def build_track_step(net, config):
 
         coords0 = pops.coords_grid(h, w, device=dev)
         coords1, _ = pops.projective_transform(st.poses, st.disps, st.intrinsics, ii, jj)
-        motn = torch.cat([coords1 - coords0, st.target - coords1], -1).clamp(-64.0, 64.0)
+        motn = torch.cat([coords1 - coords0, st.target.index_select(0, rows) - coords1], -1).clamp(-64.0, 64.0)
 
         # stereo self edges (i, i) match the left image against the right
         rig2 = (ii == jj).long() if stereo else 0
@@ -496,12 +541,12 @@ def build_track_step(net, config):
 
         k_rel = (ii - kf0).clamp(0, Ka - 1)
         net_e, delta, wgt, eta_win, upmask = update_op(
-            st.enet, st.inps[ii], corr, motn, k_rel, Ka, valid
+            st.enet.index_select(0, rows), st.inps[ii], corr, motn, k_rel, Ka, valid
         )
         target = coords1 + delta
-        st.assign_("enet", net_e)
-        st.assign_("target", target)
-        st.assign_("weight", wgt)
+        st.enet.index_copy_(0, rows, net_e)
+        st.target.index_copy_(0, rows, target)
+        st.weight.index_copy_(0, rows, wgt)
         if it is not None:
             mark(st, f"it{it}.op")
 
@@ -530,7 +575,7 @@ def build_track_step(net, config):
                 cells = occupied  # the first GN step's occupied cells
         st.assign_("poses", poses)
         st.assign_("disps", disps.clamp(min=0.001))
-        st.age += valid.long()
+        st.age += st.valid.long()  # the store's valid edges are the rows'
         if it is not None:
             mark(st, f"it{it}.gn")
             profiling.count(st.trace_ring, st.trace_row, slots[f"it{it}.edges"], valid)
@@ -589,8 +634,9 @@ def build_track_step(net, config):
         cand = torch.tensor(pairs, dtype=torch.int64, device=dev)
         _add_edges(st, cand[:, 0], cand[:, 1], torch.ones(len(pairs), dtype=torch.bool, device=dev),
                    evict=False)
+        store = torch.arange(st.ii.shape[0], device=dev)
         for _ in range(8):
-            update_iteration(st, 1)
+            update_iteration(st, 1, store)
 
         ci, cj, cok = _proximity_candidates(
             st, 0, 0, warmup, warmup, rad=2, nms=2, thresh=config.frontend_thresh,
@@ -598,7 +644,7 @@ def build_track_step(net, config):
         )
         _add_edges(st, ci, cj, cok, evict=False)
         for _ in range(8):
-            update_iteration(st, 1)
+            update_iteration(st, 1, store)
 
         # motion model: seed the next keyframe from the last one
         if t1 < st.poses.shape[0]:
@@ -616,12 +662,7 @@ def build_track_step(net, config):
         st.assign_("t1", t1)
 
         _rm_factors(st, st.valid & (st.age > config.max_age), store=True)
-        ci, cj, cok = _proximity_candidates(
-            st, t1 - 5, (t1 - config.frontend_window).clamp(min=0), 5, config.frontend_window,
-            rad=config.frontend_radius, nms=config.frontend_nms,
-            thresh=config.frontend_thresh, beta=beta, stereo=stereo, max_factors=Nmax,
-        )
-        _add_edges(st, ci, cj, cok, evict=True, budget=Nmax)
+        _add_edges(st, *_update_candidates(st, config, t1), evict=True, budget=Nmax)
 
         # RGB-D prior seeds the new keyframe disparity
         new = (t1 - 1).reshape(1)
@@ -629,8 +670,10 @@ def build_track_step(net, config):
         st.disps.index_copy_(0, new, torch.where(sens > 0, sens, st.disps.index_select(0, new)))
         mark(st, "upkeep.end")
 
+        # every valid edge, in slot order, in a fixed number of rows
+        view = _edge_view(st.valid, V)
         for k in range(config.frontend_iters1):
-            update_iteration(st, 0, k)
+            update_iteration(st, 0, view, k)
 
         # keyframe keep/cull test
         d = _bidir_distance(st, (t1 - 3).reshape(1), (t1 - 2).reshape(1), beta)[0]
@@ -646,7 +689,7 @@ def build_track_step(net, config):
         def keep(st):
             mark(st, "keep.start")
             for k in range(config.frontend_iters2):
-                update_iteration(st, 0, config.frontend_iters1 + k)
+                update_iteration(st, 0, view, config.frontend_iters1 + k)
 
         cond(d < config.keyframe_thresh, cull, keep, st)
         mark(st, "update.resume")

@@ -12,6 +12,11 @@
   probe skips frames and the test culls keyframes) and on an RGB-D and a
   stereo sequence at the sizes of tests/test_torch_stereo.py (every frame
   a keyframe, kept): between them both sides of every branch run.
+* The update iterations over the edge store's view: the benchmark's tiny
+  mono and stereo cells replayed under the same guard, where the store
+  (64 or 96 slots) is wider than the view (50 rows): on every update
+  iteration the operator's input has the view's rows, and the view's
+  valid edges are the store's; the init runs over the whole store.
 * ``cond``'s eager semantics on a toy state: one branch, written in place;
   in warm-up both branches; the predicate read once.
 
@@ -29,6 +34,7 @@ import torch
 
 from droid_slam_tpu_torch.data import synthetic
 from droid_slam_tpu_torch.models.droid_net import init_params
+from droid_slam_tpu_torch.models.update import UpdateModule
 from droid_slam_tpu_torch.runtime import Droid, DroidConfig
 from droid_slam_tpu_torch.runtime import fused as fused_step
 from droid_slam_tpu_torch.runtime import graph
@@ -36,6 +42,8 @@ from test_torch_stereo import CONFIG as STEREO_CONFIG
 from test_torch_stereo import INTR as STEREO_INTR
 from test_torch_trained import CONFIG as TRAINED_CONFIG
 from test_torch_trained import FIXTURE, N_FRAMES
+from slam_bench import harness
+from slam_bench.tests.conftest import tiny
 
 torch.set_num_threads(2)
 
@@ -162,6 +170,53 @@ def test_steady_state_reads_only_in_cond(monkeypatch, sequence):
     else:  # every frame a keyframe, kept
         assert min(reads) == max(reads) == MAX_READS_PER_FRAME
         assert taken[("cull", False)] == steady and not taken[("cull", True)]
+
+
+@pytest.mark.parametrize("cell, frames", [("tum-track-allkf", 16), ("euroc-stereo-track-allkf", 19)])
+def test_update_iterations_run_over_the_view(monkeypatch, cell, frames):
+    cell = tiny(cell, frames=frames)
+    fields = dict(cell.droid_fields(), compute_dtype="float32")  # the rows, not the precision, matter here
+    gen = harness.load_module("generators", cell.workload["generator"])
+    inputs = gen.generate(2**31 + 3, image_size=fields["image_size"], **cell.workload["generator_args"])
+    config = DroidConfig(**fields)
+    droid = Droid(config, device="cpu", weights=str(cell.weights_path()))
+    V, slots = fused_step._update_rows(config), fused_step._edge_slots(config)
+    assert V == 50 < slots
+
+    calls = []  # per operator call over edges: its rows, the rows' valid edges, the store's
+    real = UpdateModule.forward
+
+    def spy(self, net, inp, corr, flow, ii=None, num_frames=None, edge_valid=None):
+        if ii is not None:
+            calls.append((net.shape[0], corr.shape[0], edge_valid.clone(), droid._state.valid.clone()))
+        return real(self, net, inp, corr, flow, ii, num_frames, edge_valid)
+
+    monkeypatch.setattr(UpdateModule, "forward", spy)
+    guard = HostReadGuard(monkeypatch)
+    iters = config.frontend_iters1 + config.frontend_iters2
+    storage, steady = None, 0
+    with torch.backends.mkldnn.flags(enabled=False):
+        for t in range(frames):
+            calls.clear()
+            if not droid._initialized:
+                droid.track(t, inputs["images"][t], intrinsics=inputs["intrinsics"][t])
+                assert all(rows == slots for rows, *_ in calls)  # the init: the whole store
+                continue
+            storage = storage or droid._state.storage()
+            guard.cond_reads, guard.active = 0, True
+            try:
+                droid.track(t, inputs["images"][t], intrinsics=inputs["intrinsics"][t])
+            finally:
+                guard.active = False
+            assert guard.cond_reads <= MAX_READS_PER_FRAME
+            assert droid._state.storage() == storage  # no buffer was rebound
+            assert len(calls) == iters  # every frame a keyframe, kept
+            for rows, corr_rows, view_valid, store_valid in calls:
+                assert rows == corr_rows == V
+                assert int(view_valid.sum()) == int(store_valid.sum()) > 0
+            assert int(calls[-1][3].sum()) == len(droid.edges)
+            steady += 1
+    assert steady == frames - config.warmup >= 3
 
 
 def _toy():
