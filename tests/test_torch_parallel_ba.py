@@ -118,6 +118,12 @@ else:
         out[name + "/disps_up"] = v.disps_up[:t].numpy()
         out[name + "/runs"] = np.array(runs)
 np.savez(job["out"].format(rank=rank), **out)
+# Drop the last reference to the group, so that destroy_process_group frees
+# it and joins gloo's worker threads while the interpreter still runs. A
+# worker that is still releasing a finished collective's tensors once the
+# interpreter finalizes is ended as it waits for the GIL, and the rank
+# aborts ("terminate called without an active exception").
+del group
 dist.destroy_process_group()
 """
 

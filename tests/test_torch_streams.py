@@ -7,10 +7,6 @@ and through the cv2 fallback (``available`` patched false in both
 packages); EuRoC in mono and stereo, with a missing right image skipped.
 """
 
-import fcntl
-import subprocess
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -23,33 +19,6 @@ from droid_slam_tpu_torch.data import streams
 torch.set_num_threads(2)
 
 BACKENDS = ["native", "cv2"]
-NATIVE_DIR = Path(__file__).resolve().parents[1] / "native"
-
-
-def _jax_library_stale() -> bool:
-    lib, src = NATIVE_DIR / "libdroid_native.so", NATIVE_DIR / "droid_native.cc"
-    return not lib.exists() or (src.exists() and src.stat().st_mtime > lib.stat().st_mtime)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def jax_native_library():
-    """The JAX package's native library, whole, before a case loads it.
-    Its loader runs ``make -C native`` where the library is missing or
-    stale, and make writes the library in place: a worker of a parallel
-    run that loads it while another's make writes it finds no library
-    and remembers that for the whole process. So build it here under an
-    exclusive lock (each runner that finds it missing or stale waits,
-    then builds or finds it built), and let a loader that remembered a
-    failure load it again."""
-    if (NATIVE_DIR / "Makefile").exists() and _jax_library_stale():
-        with open(NATIVE_DIR / ".build.lock", "w") as lock:
-            fcntl.flock(lock, fcntl.LOCK_EX)
-            if _jax_library_stale():
-                subprocess.run(["make", "-C", str(NATIVE_DIR)], capture_output=True, timeout=120)
-    with pytest.MonkeyPatch.context() as mp:
-        if jstreams._nl._lib is None:
-            mp.setattr(jstreams._nl, "_lib_tried", False)
-        yield
 
 
 def _write_png(path, h, w, seed):
