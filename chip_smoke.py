@@ -48,6 +48,16 @@ Phases, each of which fails the run:
      of each one's max, the occupied cells equal, bitwise over repeated
      launches, the device time beside its byte bound and the plain
      version's;
+  3f. hold the tracking step's linearisation and its pose and depth
+     systems (csrc/ba_window.cu, ops/ba.py::linearize_window) against the
+     plain stages (build_edge_blocks and the block scatters) at the cells'
+     shapes (146 edge rows, Pw 64, Ka 72, a buffer of 96 frames): a window
+     drawn like the allkf cell's at 30x40, the same with an RGB-D prior, a
+     stereo window at 40x64 with self edges, 64 live poses, the depth window
+     at the buffer's end and the init's whole store, each with invalid rows
+     and rows outside the window: every output within 1e-4 of its max,
+     bitwise over repeated launches, the device time at the two cells'
+     shapes beside its byte bound and the plain stages';
   4. track 8 seeded 64x64 RGB-D frames on the GPU and on the CPU (plain
      versions) with the same seeded weights, then terminate() and
      terminate(stream) on both: same keyframes and edge sets, poses within
@@ -222,8 +232,8 @@ It starts with the card's PyTorch and CUDA versions, the GPU driver's
 CUDA version and whether torch.cuda.CUDAGraph has PyTorch's own IF-node
 methods. Phases 7-12 print their walls, and the run its whole wall. It
 prints a `kernels` JSON line (corr_level, corr_slab and corr_window in
-bf16, corr_level_f32, corr_slab_f32, corr_backward, graph_cond and
-schur_window; each
+bf16, corr_level_f32, corr_slab_f32, corr_backward, graph_cond,
+schur_window and ba_window; each
 with `launches`, the wrapper's count, and `replayed_launches`, those the
 card ran again in graph replays), the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}.
@@ -1064,6 +1074,133 @@ def check_schur_window(torch, ba, kernels, dev, seed: int):
     return cases
 
 
+# the tracking step's linearisation at the cells' shapes: 96 inactive + 50
+# view edge rows, window_pad 64 poses, 64 + 8 depth frames, a buffer of 96
+# frames; 30x40 features (tum_mono_240x320) and 40x64 (euroc_stereo_320x512)
+BA_WINDOW_SHAPE = dict(N=96 + 50, Pw=64, Ka=72, F=96)
+BA_WINDOW_CASES = (("mono", 30, 40), ("rgbd", 30, 40), ("stereo", 40, 64), ("full", 30, 40), ("end", 30, 40),
+                   ("init", 30, 40))
+BA_WINDOW_TIMED = ("mono", "stereo")  # the two cells' shapes
+BA_WINDOW_REPEATS = 3
+
+
+def ba_window_case(torch, ba, kind: str, dev, seed: int, N: int, Pw: int, Ka: int, F: int, h: int, w: int):
+    """Keyword arguments of ops/ba.py::linearize_window drawn on the CPU
+    from ``seed`` and moved to ``dev``: F frames of independent small poses,
+    disparities in [0.5, 1.5), targets the reprojections plus noise, weights
+    in [0, 1). ``mono``, a window like the allkf cell's (t0 45, t1 70, kf0
+    40; the last third of the rows among the newest 8 frames, a fifth of the
+    others invalid, |ii - jj| <= 3), with valid rows outside it: ii below
+    kf0 (out of the depth system, its pose fixed) and jj past t1 (a dead
+    pose); ``rgbd``, mono with a sensor depth on frames 44-60 (a tenth of
+    its pixels 0); ``stereo``, mono with every eighth row a self edge;
+    ``full``, 64 live poses (t0 10, t1 74, kf0 8) and a frame whose edges
+    touch all of them; ``end``, kf0 80 at the buffer's end (frames kf0 + k
+    past F for k >= 16), t0 82, t1 96; ``init``, the init's whole store (t0
+    1, t1 12, kf0 0; valid edges among the first 12 frames in the first 40
+    rows only)."""
+    g = torch.Generator().manual_seed(seed)
+    t0, t1, kf0 = dict(full=(10, 74, 8), end=(82, 96, 80), init=(1, 12, 0)).get(kind, (45, 70, 40))
+    n_act = N // 3
+    ii = torch.randint(kf0, t1 - 4, (N,), generator=g)
+    ii[N - n_act:] = torch.randint(t1 - 8, t1, (n_act,), generator=g)
+    step = torch.randint(1, 4, (N,), generator=g) * (1 - 2 * torch.randint(0, 2, (N,), generator=g))
+    jj = (ii + step).clamp(kf0, t1 - 1)
+    jj = torch.where(jj == ii, ii - step, jj)
+    valid = torch.ones(N, dtype=torch.bool)
+    valid[: N - n_act] = torch.rand(N - n_act, generator=g) >= 0.2
+    if kind in ("mono", "rgbd", "stereo"):
+        ii[:3], jj[:3] = kf0 - 2, t0 + 2
+        ii[3:6], jj[3:6] = t1 - 2, t1 + 2
+        valid[:6] = True
+    if kind == "stereo":
+        jj[::8] = ii[::8]
+    if kind == "full":
+        ii[:64] = kf0 + 13
+        jj[:64] = t0 + torch.arange(64)
+        valid[:64] = True
+    if kind == "init":
+        valid = torch.arange(N) < 40
+    xi = torch.cat([0.05 * torch.randn((F, 3), generator=g), 0.02 * torch.randn((F, 3), generator=g)], -1)
+    poses = ba.lie.exp(xi)
+    disps = 0.5 + torch.rand((F, h, w), generator=g)
+    intr = torch.tensor([w * 0.9, w * 0.9, w / 2, h / 2])
+    coords, _ = ba.pops.projective_transform(poses, disps, intr.expand(F, 4), ii, jj)
+    sens = torch.zeros(F, h, w)
+    if kind == "rgbd":
+        sens[44:61] = (0.5 + torch.rand((17, h, w), generator=g)) * (torch.rand((17, h, w), generator=g) >= 0.1)
+    scalar = lambda x: torch.tensor(x, dtype=torch.int64)
+    args = dict(poses=poses, disps=disps, intrinsics=intr, disps_sens=sens,
+                target=coords + 0.5 * torch.randn(coords.shape, generator=g),
+                weight=torch.rand(coords.shape, generator=g), eta=1e-3 + 1e-2 * torch.rand((F, h, w), generator=g),
+                ii=ii, jj=jj, edge_valid=valid, t0=scalar(t0), t1=scalar(t1), kf0=scalar(kf0))
+    return {**{k: t.to(dev) for k, t in args.items()}, "window": Pw, "kwin": Ka}
+
+
+def ba_window_run(ba, case, fn=None) -> dict:
+    """One call of ``fn`` (ops/ba.py::linearize_window or its plain version)
+    on a :func:`ba_window_case`: its outputs by name."""
+    return (fn or ba.linearize_window)(**case)._asdict()
+
+
+def ba_window_bytes(case) -> int:
+    """The bytes linearize_window needs at a case: the valid rows' targets
+    and weights and the source frames' disparities read once, E_i and E_j
+    of every row written, the depth window's prior, disparities and damping
+    read and Q and w written, Hm, v and live6 written (f32); the edges."""
+    N, hw = case["ii"].numel(), case["disps"][0].numel()
+    Ka, P6 = case["kwin"], 6 * case["window"]
+    valid = case["edge_valid"].cpu()
+    frames = case["ii"].cpu()[valid].unique().numel()
+    return (int(valid.sum()) * 16 + frames * 4 + N * 48 + Ka * 20) * hw + (P6 * P6 + 2 * P6) * 4 + N * 17
+
+
+def check_ba_window(torch, ba, kernels, dev, seed: int):
+    """Phase 3f: ops/ba.py::linearize_window's kernels (csrc/ba_window.cu)
+    against the plain stages (linearize_window_ref: build_edge_blocks and
+    the block scatters) at the cells' shapes, each of BA_WINDOW_CASES:
+    every output within KERNEL_TOL of its max |plain| (live6 equal),
+    BA_WINDOW_REPEATS runs bitwise equal, one launch per call; at the
+    BA_WINDOW_TIMED shapes the device time (profiler) beside the byte bound
+    and the plain stages' time."""
+    cases = []
+    for n, (kind, h, w) in enumerate(BA_WINDOW_CASES):
+        case = ba_window_case(torch, ba, kind, dev, seed + 37 * n, h=h, w=w, **BA_WINDOW_SHAPE)
+        before = kernels.launch_counts()
+        runs = [ba_window_run(ba, case) for _ in range(BA_WINDOW_REPEATS)]
+        launched = kernels.launches_since(before)
+        plain = ba_window_run(ba, case, ba.linearize_window_ref)
+        torch.cuda.synchronize()
+        got = runs[0]
+        errs = {k: float((got[k] - plain[k]).abs().max()) for k in got}
+        scales = {k: float(plain[k].abs().max()) for k in got}
+        bitwise = all(torch.equal(r[k], got[k]) for r in runs[1:] for k in got)
+        c = dict(kind=kind, shape=[h, w], rows=int(case["edge_valid"].sum()),
+                 self_rows=int((case["edge_valid"] & (case["ii"] == case["jj"])).sum()), max_abs_err=errs,
+                 max_abs_ref=scales, bitwise_repeat=bitwise, launches=launched,
+                 finite=all(bool(torch.isfinite(got[k]).all()) for k in got))
+        c["ok"] = bool(c["finite"] and bitwise and torch.equal(got["live6"], plain["live6"])
+                       and all(errs[k] <= KERNEL_TOL * scales[k] for k in got)
+                       and launched == {"ba_window": BA_WINDOW_REPEATS})
+        timing = ""
+        if kind in BA_WINDOW_TIMED:
+            by_kernel = {}
+            c["ms"] = device_ms(torch, lambda: ba_window_run(ba, case), reps=50, by_kernel=by_kernel)
+            c["plain_ms"] = device_ms(torch, lambda: ba_window_run(ba, case, ba.linearize_window_ref), reps=10)
+            c["by_kernel"] = by_kernel
+            c["bytes"] = ba_window_bytes(case)
+            c["bound_ms"] = 1e3 * c["bytes"] / MEM_BYTES_PER_S
+            names = {k: next((p.split("(")[0] for p in k.split("::") if "_kernel" in p), k[:40]) for k in by_kernel}
+            timing = (f"; {c['ms']:.4f} ms (bound {c['bound_ms']:.5f} ms, {c['bytes'] / 1e6:.2f} MB), plain "
+                      f"{c['plain_ms']:.4f} ms; by kernel " + ", ".join(f"{names[k]} {v:.4f}" for k, v in by_kernel.items()))
+        cases.append(c)
+        log(f"  ba_window {kind} {h}x{w}: {c['rows']} valid rows ({c['self_rows']} self); max_err "
+            + ", ".join(f"{k} {errs[k]:.3e} (tol {KERNEL_TOL * scales[k]:.3e})" for k in errs)
+            + f"; repeat {'bitwise' if bitwise else 'DIFFERS'}{timing}; launches {launched}: "
+            f"{'ok' if c['ok'] else 'FAILED'}")
+    return cases
+
+
 def small_replay(torch, np, Droid, DroidConfig, init_params, seed: int, meshes=None):
     """Phase 4: the same 8 RGB-D frames through the GPU port and the CPU port.
     With ``meshes`` ({"cuda": group, "cpu": group}), each Droid's global BA
@@ -1444,16 +1581,17 @@ def main_path(torch, np, kernels, Droid, DroidConfig, init_params, seed: int, ou
     # lookup), and the capture records them once more; then every replay
     # runs 1 probe + 4 + 2 iterations. 4 levels each; the probe in f32
     # whatever the compute type.
-    # Each update iteration runs two GN steps: a schur_window and a
-    # schur_backsub launch each.
+    # Each update iteration runs two GN steps: a ba_window, a schur_window
+    # and a schur_backsub launch each.
     eager = (cfg.warmup - 1) + 16 + 7
     gn_queued, gn_device = 2 * (16 + 6 + 6), 2 * (16 + 6 + 6 * res["replays"])
+    gn_kernels = ("ba_window", "schur_window", "schur_backsub")
     res.update(
         expected_launches={"corr_level": 4 * (eager + 7), "corr_level_f32": 4 * (cfg.warmup - 1 + 2),
-                           "graph_cond": GRAPH_IF_NODES, "schur_window": gn_queued, "schur_backsub": gn_queued},
+                           "graph_cond": GRAPH_IF_NODES, **dict.fromkeys(gn_kernels, gn_queued)},
         expected_device_launches={"corr_level": 4 * (eager + 7 * res["replays"]), "corr_level_f32": 4 * t,
-                                  "graph_cond": GRAPH_IF_NODES * res["replays"], "schur_window": gn_device,
-                                  "schur_backsub": gn_device},
+                                  "graph_cond": GRAPH_IF_NODES * res["replays"],
+                                  **dict.fromkeys(gn_kernels, gn_device)},
     )
     got = {k: res["launches"].get(k) for k in res["expected_launches"]}
     got_device = {k: res["device_launches"].get(k) for k in res["expected_device_launches"]}
@@ -2968,15 +3106,17 @@ LOOP_KEYFRAMES = (150, 240)
 QUARTER_KEYFRAMES, QUARTER_ATE, QUARTER_SCALE = (10, 55), 0.45, (0.25, 12.0)
 PROBE_JAX_EDGES = 3138  # the JAX package's record of the probe's edges (BENCH_r05.json), printed beside
 # what the long loop gives with every step eager (capture=False, TF32 off,
-# NVIDIA H100 80GB HBM3 at 700 W): 213 keyframes and an ATE of 2.4321 after
+# NVIDIA H100 80GB HBM3 at 700 W): 213 keyframes and an ATE of 2.4312 after
 # terminate; the captured run must keep the keyframes and stay within
 # LOOP_ATE_TOL of the ATE. A change to the order of the tracking step's
-# sums moves both: the window Schur complement over the occupied cells
-# gave these, and the same eager run with ops/ba.py::window_schur_ref (the
-# dense E) forced in still gives 205 and 2.4291; in f32 storage the two
-# orders part the other way (dense 213 and 2.4331, cells 205 and 2.4256).
-# After such a change, measure them again eagerly.
-LOOP_REFERENCE, LOOP_ATE_TOL = (213, 2.4321), 1e-3
+# sums moves both: the linearisation and systems of csrc/ba_window.cu gave
+# these, and the same eager run with ops/ba.py::linearize_window_ref (the
+# plain stages) forced in still gives 213 and 2.4321; before it, the
+# window Schur complement over the occupied cells moved 205 and 2.4291
+# (ops/ba.py::window_schur_ref, the dense E, forced in) to 213 and 2.4321;
+# in f32 storage those two orders part the other way (dense 213 and 2.4331,
+# cells 205 and 2.4256). After such a change, measure them again eagerly.
+LOOP_REFERENCE, LOOP_ATE_TOL = (213, 2.4312), 1e-3
 # the sweep's rows: (seed, compute dtype, phase 7's row of the same seed and dtype)
 SWEEP_ROWS = ((7, "float32", 1), (11, "bfloat16", 6))
 
@@ -3283,6 +3423,9 @@ def main(argv=None) -> int:
     log("phase 3e: the window Schur complement over the occupied cells vs the plain dense version")
     schur_cases = check_schur_window(torch, ba, kernels, dev, args.seed)
 
+    log("phase 3f: the window's linearisation and its pose and depth systems vs the plain stages")
+    lin_cases = check_ba_window(torch, ba, kernels, dev, args.seed)
+
     # with the other kernel checks: late in the run torch.profiler has come
     # back with some or none of the device events of these launches
     log("phase 9a: corr_backward vs autograd through corr_level_ref at the training path's shapes")
@@ -3498,6 +3641,25 @@ def main(argv=None) -> int:
         bound_by="bytes" if sw["bytes"] / MEM_BYTES_PER_S >= sw["ops"] / PEAK_OPS_PER_S["float32"] else "operations",
         library_ms=None,
     )))
+    # the linearisation and the systems: no Pallas kernel (the JAX package's
+    # XLA build_edge_blocks and scatters); the mono case of phase 3f, with
+    # phase 5's launches
+    lw = next(c for c in lin_cases if c["kind"] == "mono")
+    kernel_rows.append(share(dict(
+        name="ba_window",
+        route="cuda",
+        source="droid_slam_tpu_torch/csrc/ba_window.cu",
+        replaces="droid_slam_tpu/ops/ba.py::build_edge_blocks and the dense window's scatters (XLA; not a Pallas "
+                 "kernel)",
+        launches=main_res["launches"].get("ba_window", 0),
+        replayed_launches=main_res["replayed_launches"].get("ba_window", 0),
+        max_abs_err=max(lw["max_abs_err"].values()),
+        ms=lw["ms"],
+        plain_ms=lw["plain_ms"],
+        bound_ms=lw["bound_ms"],
+        bound_by="bytes",
+        library_ms=None,
+    )))
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(dict(
             device=torch.cuda.get_device_name(0), nvidia_smi=smi, torch=torch.__version__,
@@ -3506,7 +3668,7 @@ def main(argv=None) -> int:
             small_replay=small,
             main_path=main_res, captured_vs_eager=capture_res, terminate_path=term_res, synthetic_protocol=proto, host_engine=host,
             training=train, distributed=dist_res, files=files, reference_scale=scale, kernels=kernel_rows,
-            trace_kernels=trace_res, schur_window=schur_cases,
+            trace_kernels=trace_res, schur_window=schur_cases, ba_window=lin_cases,
         ), indent=1))
 
     failed = [f"{f}: no tensor-core instructions" for f, k in tile_mma.items() if k == 0]
@@ -3542,6 +3704,7 @@ def main(argv=None) -> int:
     if not trace_res["ok"]:
         failed.append("phase 3d trace kernels")
     failed += [f"phase 3e schur_window {c['kind']} {c['dtype']}" for c in schur_cases if not c["ok"]]
+    failed += [f"phase 3f ba_window {c['kind']}" for c in lin_cases if not c["ok"]]
     if not main_res["ok"]:
         failed.append("main path")
     if not capture_res["graph_cond"]["ok"]:

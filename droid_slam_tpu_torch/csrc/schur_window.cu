@@ -52,6 +52,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "block_sum.cuh"
+
 namespace {
 
 constexpr int kCellThreads = 1024;
@@ -99,28 +101,6 @@ __device__ int block_exclusive_scan(int mine, int* tot, int* total) {
   *total = tot[32];
   __syncthreads();
   return excl;
-}
-
-// Sums K per-thread values over the block in a fixed order (a shuffle tree
-// per warp, then the warps in order); thread t < K returns the t-th sum.
-template <int K, int THREADS>
-__device__ float block_sum(float (&v)[K], float (*red)[K]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    float s = v[i];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
-    if (lane == 0) red[warp][i] = s;
-  }
-  __syncthreads();
-  float s = 0.f;
-  if (threadIdx.x < K) {
-#pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) s += red[w][threadIdx.x];
-  }
-  __syncthreads();
-  return s;
 }
 
 // dynamic shared memory: the occupancy of the Ka * Pw cells (bytes)

@@ -6,7 +6,10 @@ block scatters, the windowed pose system, and two Schur-complement
 iterations:
 
 * :func:`ba_iteration_dense_window` — the fused tracking step's: the
-  depth Schur complement over the window's (depth frame, pose) cells
+  linearisation and the pose and depth systems (:func:`linearize_window`:
+  ``csrc/ba_window.cu`` on the card, :func:`build_edge_blocks` and the
+  block scatters on the CPU), the depth Schur complement over the window's
+  (depth frame, pose) cells
   (:func:`window_schur`: the occupied cells in ``csrc/schur_window.cu`` on
   the card, a dense window in plain PyTorch on the CPU). ``t0``, ``t1``
   and ``kf0`` are 0-dim tensors, so the iteration never reads to the host.
@@ -263,6 +266,134 @@ def _place_rows(rows: Tensor, start: Tensor, total: int) -> Tensor:
     return out.index_copy_(0, at, rows)[:total]
 
 
+class WindowSystem(NamedTuple):
+    """The linearised systems of one dense-window GN step
+    (:func:`linearize_window`), what :func:`window_schur` and the
+    motion-only solve take."""
+
+    Hm: Tensor  # [Pw·6, Pw·6] pose system, live-masked, identity on the dead rows
+    v: Tensor  # [Pw, 6]
+    live6: Tensor  # [Pw·6] 1 on the live window's rows
+    Ei: Tensor  # [N, 6, HW]
+    Ej: Tensor  # [N, 6, HW]
+    Q: Tensor  # [Ka, HW] the depth block's inverse
+    w_rhs: Tensor  # [Ka, HW] the depth rhs
+
+
+def linearize_window_ref(poses, disps, intrinsics, disps_sens, target, weight, eta, ii, jj, edge_valid, t0, t1,
+                         kf0, window: int, kwin: int, alpha: float = 0.05) -> WindowSystem:
+    """Plain version of :func:`linearize_window`: :func:`build_edge_blocks`,
+    the pose system's block scatters (:func:`_assemble_pose_system`) and the
+    depth system's, in PyTorch."""
+    F = poses.shape[0]
+    ht, wd = disps.shape[-2:]
+    hw = ht * wd
+    dev = poses.device
+    dtype = poses.dtype
+
+    blocks = build_edge_blocks(
+        target, weight, poses, disps, intrinsics.expand(F, 4), ii, jj,
+        edge_valid=edge_valid, min_depth=pops.MIN_DEPTH_NATIVE,
+    )
+
+    ii_r = ii - t0
+    jj_r = jj - t0
+    Hm, v, live, live6 = _assemble_pose_system(blocks, ii_r, jj_r, window, t0, t1)
+
+    # ---- depth system over the kwin-frame window ----
+    k_rel = ii - kf0
+    ks = torch.arange(kwin, device=dev)
+    kframes = kf0 + ks
+    in_window = (kframes >= t0) & (kframes < t1) & (kframes < F)
+    touched = ((k_rel.clamp(0, kwin - 1)[None, :] == ks[:, None]) & edge_valid[None, :]).any(dim=1)
+    in_kx = in_window | (touched & (kframes < F))
+
+    safe_k = kframes.clamp(max=F - 1)
+    sens_w = disps_sens[safe_k].reshape(kwin, hw)
+    disps_w = disps[safe_k].reshape(kwin, hw)
+    eta_w = eta[safe_k].reshape(kwin, hw)
+
+    C = _scatter_vec(blocks.Ck, k_rel, kwin)
+    w_rhs = _scatter_vec(blocks.wk, k_rel, kwin)
+    m = (sens_w > 0).to(dtype)
+    C = C + m * alpha + (1.0 - m) * eta_w
+    w_rhs = w_rhs - m * alpha * (disps_w - sens_w)
+    Q = in_kx.to(dtype)[:, None] / torch.where(C == 0.0, torch.ones_like(C), C)
+    return WindowSystem(Hm, v, live6, blocks.Ei, blocks.Ej, Q, w_rhs)
+
+
+# the pixels of a linearisation block of csrc/ba_window.cu (its entry point
+# checks it against its own layout), and the number of each tile's partial
+# sums (H_jj's upper triangle and v_j)
+WINDOW_LIN_PIXELS = 256
+WINDOW_PARTIALS = 27
+
+
+def linearize_window(poses, disps, intrinsics, disps_sens, target, weight, eta, ii, jj, edge_valid, t0, t1, kf0,
+                     window: int, kwin: int, alpha: float = 0.05) -> WindowSystem:
+    """Linearise the reprojection factors of a dense-window GN step and
+    assemble its pose system and its depth system.
+
+    poses [F, 7]; disps, disps_sens, eta [F, H, W]; intrinsics [4] (one
+    camera); target/weight [N, H, W, 2]; ii/jj [N] int64 in range;
+    edge_valid [N] bool; t0, t1, kf0 0-dim int64 (kf0 ≥ 0). Pixels whose
+    transformed depth is below the runtime's ``MIN_DEPTH_NATIVE`` carry no
+    weight. The pose system
+    is the window [t0, t0 + ``window``) with rows past t1 − t0 dead; the
+    depth system covers frames [kf0, kf0 + ``kwin``), with the RGB-D prior
+    ``alpha`` where ``disps_sens`` > 0 and ``eta`` elsewhere, Q zero on the
+    frames outside the window that no valid edge touches.
+
+    A CUDA tensor goes to the kernels of ``csrc/ba_window.cu`` (two
+    launches, static grids, no allocation inside: safe to capture); anything
+    they do not take raises. A CPU tensor goes to
+    :func:`linearize_window_ref`.
+    """
+    if poses.device.type == "cpu":
+        return linearize_window_ref(poses, disps, intrinsics, disps_sens, target, weight, eta, ii, jj, edge_valid,
+                                    t0, t1, kf0, window, kwin, alpha=alpha)
+    from . import kernels
+
+    F = poses.shape[0]
+    N = ii.shape[0]
+    ht, wd = disps.shape[-2:]
+    hw = ht * wd
+    Pw, dev = window, poses.device
+    planes = (disps, disps_sens, eta)
+    floats = (poses, intrinsics, target, weight) + planes
+    ints = (ii, jj, t0, t1, kf0)
+    if (any(t.device != dev or t.dtype != torch.float32 or not t.is_contiguous() for t in floats)
+            or any(t.device != dev or t.dtype != torch.int64 or not t.is_contiguous() for t in ints)
+            or edge_valid.device != dev or edge_valid.dtype != torch.bool or not edge_valid.is_contiguous()
+            or poses.shape != (F, 7) or intrinsics.shape != (4,) or any(t.shape != (F, ht, wd) for t in planes)
+            or target.shape != (N, ht, wd, 2) or weight.shape != (N, ht, wd, 2)
+            or ii.shape != (N,) or jj.shape != (N,) or edge_valid.shape != (N,)
+            or any(t.dim() != 0 for t in (t0, t1, kf0))
+            or F == 0 or hw == 0 or N > 5120 or not 0 < Pw <= 170 or kwin <= 0):
+        raise ValueError("linearize_window: the kernels take contiguous f32 poses [F, 7], planes [F, H, W], "
+                         "intrinsics [4], targets and weights [N, H, W, 2], int64 edges and 0-dim window "
+                         "bounds and a bool edge mask on one CUDA device, with N <= 5120, 0 < Pw <= 170, Ka > 0")
+    tiles = -(-hw // WINDOW_LIN_PIXELS)
+    f32 = dict(dtype=torch.float32, device=dev)
+    Ei = torch.empty((N, 6, hw), **f32)
+    Ej = torch.empty((N, 6, hw), **f32)
+    Ck = torch.empty((N, hw), **f32)
+    wk = torch.empty((N, hw), **f32)
+    part = torch.empty((N, tiles, WINDOW_PARTIALS), **f32)
+    Hm = torch.empty((Pw * 6, Pw * 6), **f32)
+    v = torch.empty((Pw, 6), **f32)
+    live6 = torch.empty(Pw * 6, **f32)
+    Q = torch.empty((kwin, hw), **f32)
+    w_rhs = torch.empty((kwin, hw), **f32)
+    kernels.launch(
+        "ba_window", dev,
+        *(t.data_ptr() for t in (poses, disps, intrinsics, disps_sens, target, weight, eta, ii, jj, edge_valid,
+                                 t0, t1, kf0, Ei, Ej, Ck, wk, part, Hm, v, live6, Q, w_rhs)),
+        N, F, hw, wd, Pw, kwin, WINDOW_LIN_PIXELS, alpha, pops.MIN_DEPTH_NATIVE,
+    )
+    return WindowSystem(Hm, v, live6, Ei, Ej, Q, w_rhs)
+
+
 def ba_iteration_dense_window(
     poses: Tensor,
     disps: Tensor,
@@ -288,7 +419,9 @@ def ba_iteration_dense_window(
     """One GN iteration with a windowed Schur complement
     (``ops/ba.py::ba_iteration_dense_window`` of the JAX package).
 
-    The depth Schur complement S = Σ_k E_k Q_k E_kᵀ over the (depth frame,
+    The linearisation and the pose and depth systems are
+    :func:`linearize_window`'s (``csrc/ba_window.cu`` on the card). The
+    depth Schur complement S = Σ_k E_k Q_k E_kᵀ over the (depth frame,
     pose) cells of the window is :func:`window_schur`'s: the occupied cells
     only on the card, a dense E [kwin, window·6, HW] on the CPU.
     ``schur_dtype`` is the storage dtype of E; the contractions accumulate
@@ -301,52 +434,24 @@ def ba_iteration_dense_window(
     """
     F = poses.shape[0]
     ht, wd = disps.shape[-2:]
-    hw = ht * wd
     Pw = window
-    dev = poses.device
-    dtype = poses.dtype
     sd = schur_dtype
 
-    blocks = build_edge_blocks(
-        target, weight, poses, disps, intrinsics.expand(F, 4), ii, jj,
-        edge_valid=edge_valid, min_depth=pops.MIN_DEPTH_NATIVE,
-    )
-
-    ii_r = ii - t0
-    jj_r = jj - t0
-    Hm, v, live, live6 = _assemble_pose_system(blocks, ii_r, jj_r, Pw, t0, t1)
+    lin = linearize_window(poses, disps, intrinsics, disps_sens, target, weight, eta, ii, jj, edge_valid, t0, t1,
+                           kf0, Pw, kwin, alpha=alpha)
+    live6 = lin.live6
 
     if motion_only:
-        dx = cholesky_solve(_damp(Hm, lm, ep, live6), v.reshape(Pw * 6, 1)).reshape(Pw, 6)
-        return lie.retr(poses, _place_rows(dx * live[:, None], t0, F)), disps, None
-
-    # ---- depth system over the kwin-frame window ----
-    k_rel = ii - kf0
-    ks = torch.arange(kwin, device=dev)
-    kframes = kf0 + ks
-    in_window = (kframes >= t0) & (kframes < t1) & (kframes < F)
-    touched = ((k_rel.clamp(0, kwin - 1)[None, :] == ks[:, None]) & edge_valid[None, :]).any(dim=1)
-    in_kx = in_window | (touched & (kframes < F))
-
-    safe_k = kframes.clamp(max=F - 1)
-    sens_w = disps_sens[safe_k].reshape(kwin, hw)
-    disps_w = disps[safe_k].reshape(kwin, hw)
-    eta_w = eta[safe_k].reshape(kwin, hw)
-
-    C = _scatter_vec(blocks.Ck, k_rel, kwin)
-    w_rhs = _scatter_vec(blocks.wk, k_rel, kwin)
-    m = (sens_w > 0).to(dtype)
-    C = C + m * alpha + (1.0 - m) * eta_w
-    w_rhs = w_rhs - m * alpha * (disps_w - sens_w)
-    Q = in_kx.to(dtype)[:, None] / torch.where(C == 0.0, torch.ones_like(C), C)
+        dx = cholesky_solve(_damp(lin.Hm, lm, ep, live6), lin.v.reshape(Pw * 6, 1)).reshape(Pw, 6)
+        return lie.retr(poses, _place_rows(dx * live6[::6, None], t0, F)), disps, None
 
     def solve(Ad, rhs):
         dx = cholesky_solve(Ad, rhs)
         dx = dx + cholesky_solve(Ad, rhs - torch.matmul(Ad, dx))  # f32 refinement
         return dx.reshape(Pw * 6) * live6
 
-    dx6, dz, cells = window_schur(blocks.Ei, blocks.Ej, ii, jj, edge_valid, t0, t1, kf0, Q, w_rhs, Hm, v,
-                                  solve, lm, ep, sd)
+    dx6, dz, cells = window_schur(lin.Ei, lin.Ej, ii, jj, edge_valid, t0, t1, kf0, lin.Q, lin.w_rhs, lin.Hm,
+                                  lin.v, solve, lm, ep, sd)
 
     poses = lie.retr(poses, _place_rows(dx6.reshape(Pw, 6), t0, F))
     disps = disps + _place_rows(dz, kf0, F).reshape(F, ht, wd)

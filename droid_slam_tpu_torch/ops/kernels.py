@@ -76,6 +76,14 @@ KERNELS = {
         "schur_backsub_launch",
         [_VOIDP] * 7 + [_INT] * 4 + [_VOIDP],
     ),
+    # the tracking step's linearisation and its pose and depth systems
+    # (ops/ba.py::linearize_window): one launch is two kernels (linearise,
+    # assemble)
+    "ba_window": (
+        "ba_window.cu",
+        "ba_window_launch",
+        [_VOIDP] * 23 + [_INT] * 7 + [ctypes.c_float] * 2 + [_VOIDP],
+    ),
     # the set kernel of an IF node, captured into a CUDA graph
     # (runtime/graph.py): one launch per node captured
     "graph_cond": (
