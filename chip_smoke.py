@@ -35,9 +35,9 @@ Phases, each of which fails the run:
      results must be bitwise equal;
   3d. hold the tracking step's flight-recorder kernels (trace_begin,
      trace_stamp, trace_count in csrc/graph_cond.cu) against their plain
-     versions (utils/profiling.py's CPU path) on a [64, 47] ring with a
+     versions (utils/profiling.py's CPU path) on a [64, 53] ring with a
      48-slot mask: cursor, rows, tstamp bits and count exactly equal,
-     stamps non-decreasing; then the 44 recorder launches of one step
+     stamps non-decreasing; then the 50 recorder launches of one step
      captured and replayed (a row per replay), each kernel timed;
   3e. hold the tracking step's depth Schur complement over the occupied
      cells (csrc/schur_window.cu, ops/ba.py::window_schur) against its
@@ -829,11 +829,11 @@ def check_segment_sum(torch, segment, dev, seed: int):
 # the tracking step's flight recorder at the bench configuration: RING_ROWS
 # rows x the columns of runtime/fused.py::trace_slots, a mask of its
 # max_factors valid-edge slots, and the recorder launches captured into one
-# step: trace_begin once, trace_stamp at 31 columns, trace_count at 12 (each
+# step: trace_begin once, trace_stamp at 37 columns, trace_count at 12 (each
 # iteration's valid edges and occupied Schur cells)
-TRACE_RING = (64, 47)
+TRACE_RING = (64, 53)
 TRACE_MASK = 48
-TRACE_STEP_LAUNCHES = {"trace_begin": 1, "trace_stamp": 31, "trace_count": 12}
+TRACE_STEP_LAUNCHES = {"trace_begin": 1, "trace_stamp": 37, "trace_count": 12}
 
 
 def check_trace_kernels(torch, profiling, graph, dev, seed: int):

@@ -168,17 +168,17 @@ def _trace_layout(config) -> List[Tuple[str, Optional[str]]]:
     model close ``upkeep``; for each of the ``frontend_iters1``
     iterations, then the ``frontend_iters2`` in the keep body, its start
     closes ``ba`` (the previous iteration's tail), the time after its
-    lookups and operator ``update`` and after its GN steps ``ba``; its
-    valid-edge count (``edges``) is a count, not a time, and so is the
-    number of (depth frame, pose) cells its first GN step's Schur
-    complement occupied (``cells``, phase None: no reader of the phases
-    sees it). In stereo each iteration has two columns more: the time
-    after its lookups (``corr``, which closes ``update`` too, so the
-    phase still runs from the start to after the operator) and its valid
-    self edges (``self``, a count of phase None)."""
-    parts = [("start", "ba"), ("op", "update"), ("gn", "ba"), ("edges", "edges"), ("cells", None)]
+    lookups (``corr``) and after its operator close ``update`` (so the
+    phase runs from the start to after the operator), after its GN steps
+    ``ba``; its valid-edge count (``edges``) is a count, not a time, and
+    so is the number of (depth frame, pose) cells its first GN step's
+    Schur complement occupied (``cells``, phase None: no reader of the
+    phases sees it). In stereo each iteration has one column more: its
+    valid self edges (``self``, a count of phase None)."""
+    parts = [("start", "ba"), ("corr", "update"), ("op", "update"), ("gn", "ba"), ("edges", "edges"),
+             ("cells", None)]
     if config.stereo:
-        parts = parts[:1] + [("corr", "update")] + parts[1:] + [("self", None)]
+        parts.append(("self", None))
 
     def iterations(ks):
         return [(f"it{k}.{part}", phase) for k in ks for part, phase in parts]
@@ -536,7 +536,7 @@ def build_track_step(net, config):
         # stereo self edges (i, i) match the left image against the right
         rig2 = (ii == jj).long() if stereo else 0
         corr = corr_ops.corr_lookup(st.fmaps[ii, 0], st.fmaps[jj, rig2], coords1)
-        if it is not None and stereo:
+        if it is not None:
             mark(st, f"it{it}.corr")
 
         k_rel = (ii - kf0).clamp(0, Ka - 1)

@@ -12,8 +12,8 @@ cut to a tiny size on the CPU:
   program's, and a followed step then gives gap 0 against the program;
 * the flight recorder in stereo: each update iteration's ``it{k}.self``
   counts the valid self edges, its ``it{k}.corr`` stamp lies between the
-  iteration's start and its operator's end, and the monocular layout is
-  column for column what it was.
+  iteration's start and its operator's end, as in the monocular layout,
+  to which stereo adds only the ``.self`` counts.
 """
 
 import numpy as np
@@ -160,7 +160,7 @@ def test_self_counts_and_lookup_stamps_of_each_update_iteration(shipped_port):
             assert r[f"it{it}.start"] <= r[f"it{it}.corr"] <= r[f"it{it}.op"]
 
 
-MONO_ITERATION = ["start", "op", "gn", "edges", "cells"]
+MONO_ITERATION = ["start", "corr", "op", "gn", "edges", "cells"]
 MONO_LAYOUT = (["tstamp", "step.start", "fnet.end", "probe.end", "keyframe.start", "keyframe.end", "init.start",
                 "init.end", "update.start", "upkeep.end"]
                + [f"it{k}.{p}" for k in range(4) for p in MONO_ITERATION]
@@ -171,14 +171,13 @@ MONO_LAYOUT = (["tstamp", "step.start", "fnet.end", "probe.end", "keyframe.start
 
 def test_monocular_layout_is_unchanged_and_stereo_adds_two_columns_per_iteration():
     mono = DroidConfig(image_size=(48, 64))
-    assert list(fused_step.trace_slots(mono)) == MONO_LAYOUT and len(MONO_LAYOUT) == 47
+    assert list(fused_step.trace_slots(mono)) == MONO_LAYOUT and len(MONO_LAYOUT) == 53
     phases = fused_step.trace_phases(mono)
-    assert not any(name.endswith((".self", ".corr")) for name in phases)
+    assert not any(name.endswith(".self") for name in phases)
+    assert all(phases[f"it{k}.corr"] == "update" for k in range(6))
     stereo = DroidConfig(image_size=(48, 64), stereo=True)
-    want = [n for m in MONO_LAYOUT for n in ([m, m.replace(".start", ".corr")] if m.startswith("it") and
-                                             m.endswith(".start") else [m])]
-    want = [n for m in want for n in ([m, m.replace(".cells", ".self")] if m.endswith(".cells") else [m])]
+    want = [n for m in MONO_LAYOUT for n in ([m, m.replace(".cells", ".self")] if m.endswith(".cells") else [m])]
     assert list(fused_step.trace_slots(stereo)) == want
     sp = fused_step.trace_phases(stereo)
     assert all(sp[f"it{k}.corr"] == "update" and f"it{k}.self" not in sp for k in range(6))
-    assert {n: p for n, p in sp.items() if not n.endswith(".corr")} == phases
+    assert sp == phases
